@@ -1,0 +1,88 @@
+"""The PyTorch port stands alone: no module of voxe_tpu_torch (nor
+chip_smoke.py) imports jax, flax, optax or voxe_tpu. Plus the flash kernel's
+wrapper contract, and the kernel held against its plain version on the card
+(marked `cuda`: skipped without one)."""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import voxe_tpu_torch
+from voxe_tpu_torch.ops import flash_attention as fa
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(voxe_tpu_torch.__path__, "voxe_tpu_torch.")
+    )
+
+
+def test_port_imports_no_jax_or_reference_package():
+    mods = _modules()
+    assert "voxe_tpu_torch.ops.flash_attention" in mods and len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'voxe_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_wrapper_cpu_path_counts_no_launch():
+    q = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, q, q)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert fa.LAUNCHES == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,q_scale",
+    [((2, 4096, 5, 64), 1.0), ((1, 2500, 2, 128), 1.0), ((1, 100, 3, 64), 1.0), ((1, 1000, 3, 64), 4.0)],
+)
+def test_flash_kernel_matches_plain_on_card(cuda_device, shape, q_scale):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device, dtype=torch.bfloat16) for _ in range(3))
+    q = q * q_scale  # 4.0: peaked scores, so the running max moves between key tiles
+    before = fa.LAUNCHES
+    out = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    ref = fa.flash_attention_reference(q, k, v).float()
+    # Relative to max|ref|: an output element has std ~sqrt(e/L), so an
+    # absolute limit would follow the shape. Both sides round to bf16 (one ulp
+    # at max|ref| is 2^-8..2^-7 of it); 2e-2 is ~2.5-5 ulps, while a wrong
+    # rescale or row sum is O(1) relative.
+    assert float((out.float() - ref).abs().max() / ref.abs().max()) < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_unsupported_inputs(cuda_device):
+    q = torch.randn(1, 64, 2, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)  # head dim 32
+    q = torch.randn(1, 64, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)  # f32

@@ -1,0 +1,208 @@
+"""Stable Diffusion wrapper + Score Distillation Sampling loss
+(counterpart of voxe_tpu/models/sd/sds.py; reference
+thre3d_atom/thre3d_reprs/sd.py:20-385).
+
+* `SpecifyGradient` is the reference's autograd.Function (the JAX package's
+  `specify_gradient` custom VJP): the forward returns a zero "loss", the
+  backward injects the precomputed SDS gradient w(t)(eps_hat - eps)/B into
+  the latents.
+* UNet and VAE run in bf16 by default; latents and the SDS arithmetic stay
+  f32. The UNet runs under `torch.no_grad()` (the JAX stop_gradient).
+* Weights are seeded random ("random") or zeros ("zeros"); real
+  checkpoints are not loaded by this slice. `load_flax_params` carries a
+  JAX parameter tree across.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from voxe_tpu_torch.models.sd.clip_text import CLIPTextModel
+from voxe_tpu_torch.models.sd.config import SD_VERSIONS, SDConfig, tiny_test_config
+from voxe_tpu_torch.models.sd.norms import GroupNorm
+from voxe_tpu_torch.models.sd.scheduler import DDIMScheduler
+from voxe_tpu_torch.models.sd.tokenizer import HashTokenizer
+from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
+from voxe_tpu_torch.models.sd.vae import AutoencoderKL
+from voxe_tpu_torch.models.sd.weights import from_flax_params
+
+DIRECTION_PROMPTS = ("side", "overhead", "back", "front")
+
+
+class SpecifyGradient(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, latents, gt_grad):
+        ctx.save_for_backward(gt_grad)
+        ctx.batch_size = latents.shape[0]
+        return torch.zeros((), dtype=latents.dtype, device=latents.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        (gt_grad,) = ctx.saved_tensors
+        return g * gt_grad / ctx.batch_size, None
+
+
+def specify_gradient(latents, gt_grad):
+    return SpecifyGradient.apply(latents, gt_grad)
+
+
+@torch.no_grad()
+def _random_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init: weights ~ N(0, 1/fan_in), biases 0, norm scales 1."""
+    for sub in module.modules():
+        if isinstance(sub, (nn.LayerNorm, GroupNorm)):
+            sub.weight.fill_(1.0)
+            sub.bias.zero_()
+        elif isinstance(sub, (nn.Linear, nn.Conv2d, nn.Embedding)):
+            w = sub.weight
+            fan_in = w.shape[1] if isinstance(sub, nn.Embedding) else w[0].numel()
+            noise = torch.randn(w.shape, generator=generator, device=generator.device)
+            w.copy_(noise * fan_in**-0.5)
+            if getattr(sub, "bias", None) is not None:
+                sub.bias.zero_()
+
+
+class StableDiffusion:
+    """Frozen SD pipeline: tokenizer + CLIP text + VAE + UNet + schedule."""
+
+    def __init__(
+        self,
+        sd_version: str = "2.1",
+        config: Optional[SDConfig] = None,
+        seed: int = 0,
+        unet_dtype=torch.bfloat16,
+        vae_dtype=None,
+        init_mode: str = "random",
+        device="cuda",
+    ):
+        if config is None:
+            config = tiny_test_config() if sd_version == "tiny" else SD_VERSIONS[sd_version]
+        self.config = config
+        self.device = torch.device(device)
+        self.unet_dtype = unet_dtype
+        self.vae_dtype = unet_dtype if vae_dtype is None else vae_dtype
+        self.scheduler = DDIMScheduler(
+            config.num_train_timesteps, config.beta_start, config.beta_end, device=self.device
+        )
+        self.alphas = self.scheduler.alphas_cumprod
+        self.tokenizer = HashTokenizer(config.clip.vocab_size)
+
+        with self.device:  # build in place: no host copy of 1.3B parameters
+            self.clip = CLIPTextModel(config.clip)
+            self.vae = AutoencoderKL(config.vae)
+            self.unet = UNet2DConditionModel(config.unet)
+        if init_mode == "random":
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            for m in (self.clip, self.vae, self.unet):
+                _random_init_(m, gen)
+        elif init_mode == "zeros":
+            for m in (self.clip, self.vae, self.unet):
+                for p in m.parameters():
+                    p.data.zero_()
+        else:
+            raise ValueError(f"init_mode {init_mode!r}: 'random' or 'zeros'")
+        self._place()
+        self._text_embed_cache: Dict[str, torch.Tensor] = {}
+
+    def _place(self) -> None:
+        memory_format = (
+            torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
+        )
+        self.clip.to(self.device, torch.float32)
+        self.vae.to(self.device, self.vae_dtype, memory_format=memory_format)
+        self.unet.to(self.device, self.unet_dtype, memory_format=memory_format)
+        for m in (self.clip, self.vae, self.unet):
+            m.eval().requires_grad_(False)
+
+    def load_flax_params(self, params: Mapping) -> None:
+        """Load a JAX parameter tree {"clip", "vae", "unet"} (numpy leaves)."""
+        for name in ("clip", "vae", "unet"):
+            getattr(self, name).load_state_dict(from_flax_params(params[name]), strict=True)
+        self._place()
+        self._text_embed_cache.clear()
+
+    @torch.no_grad()
+    def get_text_embeds(self, prompt, negative_prompt="") -> torch.Tensor:
+        """[2, 77, D] (uncond, cond), cached per prompt pair."""
+        cache_key = f"{prompt}|||{negative_prompt}"
+        if cache_key not in self._text_embed_cache:
+            ids = np.concatenate(
+                [self.tokenizer(negative_prompt), self.tokenizer(prompt)], axis=0
+            )
+            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+            self._text_embed_cache[cache_key] = self.clip(ids_t)
+        return self._text_embed_cache[cache_key]
+
+    # ------------------------------------------------------------------
+    def latent_shape(self, batch: int):
+        f = 2 ** (len(self.config.vae.block_out_channels) - 1)
+        s = self.config.image_size // f
+        return (batch, self.config.vae.latent_channels, s, s)
+
+    def encode_imgs(self, imgs_nchw, eps=None):
+        """imgs [B, 3, H, W] in [0, 1] -> f32 scaled latents [B, 4, h, w],
+        run in the VAE's dtype."""
+        x = (2.0 * imgs_nchw - 1.0).to(self.vae_dtype)
+        if self.device.type == "cuda":
+            x = x.contiguous(memory_format=torch.channels_last)
+        return self.vae.encode(x, eps).float()
+
+    @torch.no_grad()
+    def unet_noise_pred(self, latents_in, t, text_embeddings):
+        """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction."""
+        x = latents_in.to(self.unet_dtype)
+        if self.device.type == "cuda":
+            x = x.contiguous(memory_format=torch.channels_last)
+        out = self.unet(x, t, text_embeddings.to(self.unet_dtype))
+        return out.float()
+
+    def sds_loss(
+        self,
+        text_embeddings: torch.Tensor,  # [2, 77, D]
+        pred_rgb: torch.Tensor,  # [B, H, W, 3] in [0, 1], differentiable
+        t,  # int or 0-d integer tensor
+        guidance_scale: float = 100.0,
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,  # [B, h, w, 4] NHWC
+        vae_eps: Optional[torch.Tensor] = None,  # [B, h, w, 4] NHWC
+    ) -> torch.Tensor:
+        """The SDS "loss" whose gradient w.r.t. pred_rgb is the score
+        distillation gradient. `noise` and `vae_eps` replay given draws;
+        otherwise they are drawn from `generator`."""
+        size = self.config.image_size
+        batch = pred_rgb.shape[0]
+        shape = self.latent_shape(batch)
+        dev = pred_rgb.device
+
+        def draw(given):
+            if given is not None:
+                return given.to(dev, torch.float32).permute(0, 3, 1, 2)
+            return torch.randn(shape, generator=generator, device=dev)
+
+        eps = draw(vae_eps)
+        noise = draw(noise)
+        # jax.image.resize "bilinear" antialiases when it shrinks
+        x = pred_rgb.permute(0, 3, 1, 2)
+        pred_512 = F.interpolate(
+            x, size=(size, size), mode="bilinear", antialias=True, align_corners=False
+        )
+        latents = self.encode_imgs(pred_512, eps)
+
+        latents_ng = latents.detach()
+        latents_noisy = self.scheduler.add_noise(latents_ng, noise, t)
+        latent_model_input = torch.cat([latents_noisy] * 2, dim=0)
+        text_ctx = (
+            text_embeddings.repeat_interleave(batch, dim=0) if batch > 1 else text_embeddings
+        )
+        noise_pred = self.unet_noise_pred(latent_model_input, t, text_ctx)
+        noise_pred_uncond, noise_pred_text = noise_pred.chunk(2, dim=0)
+        noise_pred = noise_pred_text + guidance_scale * (noise_pred_text - noise_pred_uncond)
+
+        w = 1.0 - self.alphas[t]
+        grad = torch.nan_to_num(w * (noise_pred - noise))
+        return specify_gradient(latents, grad)

@@ -1,0 +1,134 @@
+"""Flash-attention forward: the hand-written Hopper kernel and its plain
+PyTorch version.
+
+Replaces the Pallas TPU kernel that voxe_tpu's UNet self-attention calls
+(`voxe_tpu/models/sd/unet.py:156-171`, JAX's library
+`jax.experimental.pallas.ops.tpu.flash_attention.flash_attention`, forward
+only): non-causal, unmasked softmax(Q K^T * d^-1/2) V without forming the
+[B, h, Q, K] scores. The CUDA source is `voxe_tpu_torch/csrc/flash_attn_fwd.cu`;
+it is compiled with nvcc for sm_90a into a shared library with a plain C
+interface at first use and loaded with ctypes.
+
+Layout is [B, Q, h, d] (the UNet's own layout before a head transpose), bf16
+in and out, d in {64, 128}. A CPU tensor goes to `flash_attention_reference`;
+a CUDA tensor goes to the kernel or the call raises — there is no fallback.
+`LAUNCHES` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attn_fwd.cu"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SUPPORTED_HEAD_DIMS = (64, 128)
+
+LAUNCHES = 0  # kernel launches since import (or the last reset)
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def _nvcc() -> str:
+    toolkit = Path("/usr/local/cuda/bin/nvcc")
+    return str(toolkit) if toolkit.exists() else "nvcc"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernel (once per source content) and return the library
+    path. `verbose` prints ptxas' report when a build happens."""
+    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
+    lib_path = BUILD_DIR / f"libflash_attn_fwd-{digest}.so"
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC),
+    ]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def _load():
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            fn = lib.voxe_flash_attn_fwd
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain version: scores and softmax in f32, output in q's dtype.
+    q [B, Q, h, d], k/v [B, K, h, d] -> [B, Q, h, d]."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(Q K^T * scale) V over [B, Q, h, d] tensors (default scale
+    d^-1/2). CPU tensors take the plain version; CUDA tensors the kernel."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device:
+            raise ValueError(f"flash_attention: {name} on {x.device}, q on {q.device}")
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention: {name} must be bfloat16, got {x.dtype}")
+        if x.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be [B, L, h, d], got {tuple(x.shape)}")
+        if not x.is_contiguous() or x.data_ptr() % 16 != 0:
+            raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
+        if x.requires_grad:
+            raise ValueError("flash_attention: forward only; no path needs its backward yet")
+    B, Lq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
+        raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    Lk = k.shape[1]
+    if Lq == 0 or Lk == 0:
+        raise ValueError("flash_attention: empty sequence")
+    out = torch.empty_like(q)
+    lib = _load()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.voxe_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Lq, Lk, D, float(scale), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out

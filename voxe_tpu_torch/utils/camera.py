@@ -1,0 +1,115 @@
+"""Camera types, spherical poses and the random hemisphere draw
+(counterpart of voxe_tpu/utils/camera.py).
+
+OpenGL-style camera (+x right, +y up, looking down -z); poses are built as
+yaw @ pitch @ translate_z. Pose construction is tiny host math and stays in
+NumPy; `random_pose` is the counterpart of `random_pose_jax`: it draws pitch
+and yaw from an explicit `torch.Generator`.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+
+class CameraIntrinsics(NamedTuple):
+    height: int
+    width: int
+    focal: float
+
+
+class CameraPose(NamedTuple):
+    rotation: np.ndarray  # [3, 3] (numpy or torch)
+    translation: np.ndarray  # [3, 1]
+
+
+class CameraBounds(NamedTuple):
+    near: float
+    far: float
+
+
+def _translate_z(z: float) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[2, 3] = z
+    return m
+
+
+def _rotate_pitch(pitch: float) -> np.ndarray:
+    c, s = np.cos(pitch), np.sin(pitch)
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1], m[1, 2] = c, -s
+    m[2, 1], m[2, 2] = s, c
+    return m
+
+
+def _rotate_yaw(yaw: float) -> np.ndarray:
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 1] = c, -s
+    m[1, 0], m[1, 1] = s, c
+    return m
+
+
+def pose_spherical(yaw: float, pitch: float, radius: float) -> CameraPose:
+    """Camera-to-world pose on a sphere (yaw/pitch in degrees)
+    (reference: thre3d_atom/utils/imaging_utils.py:188-194)."""
+    c2w = _translate_z(radius)
+    c2w = _rotate_pitch(pitch / 180.0 * np.pi) @ c2w
+    c2w = _rotate_yaw(yaw / 180.0 * np.pi) @ c2w
+    return CameraPose(rotation=c2w[:3, :3], translation=c2w[:3, 3:])
+
+
+def pose_from_angles(
+    pitch_deg: torch.Tensor, yaw_deg: torch.Tensor, radius: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rotation [3, 3], translation [3, 1]) f32 tensors for a hemisphere
+    pose given as 0-d angle tensors in degrees — `random_pose_jax`'s math."""
+    pitch = pitch_deg * (math.pi / 180.0)
+    yaw = yaw_deg * (math.pi / 180.0)
+    cp, sp = torch.cos(pitch), torch.sin(pitch)
+    cy, sy = torch.cos(yaw), torch.sin(yaw)
+    one, zero = torch.ones_like(cp), torch.zeros_like(cp)
+    rot_pitch = torch.stack(
+        [torch.stack([one, zero, zero]), torch.stack([zero, cp, -sp]),
+         torch.stack([zero, sp, cp])]
+    )
+    rot_yaw = torch.stack(
+        [torch.stack([cy, -sy, zero]), torch.stack([sy, cy, zero]),
+         torch.stack([zero, zero, one])]
+    )
+    rotation = rot_yaw @ rot_pitch
+    translation = rotation @ torch.tensor(
+        [[0.0], [0.0], [radius]], dtype=rotation.dtype, device=rotation.device
+    )
+    return rotation, translation
+
+
+def random_pose(
+    generator: torch.Generator, radius: float, device="cuda"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Random hemisphere pose: pitch ~ U[15, 90), yaw ~ U[0, 360).
+
+    Returns (rotation [3, 3], translation [3, 1], pitch_deg, yaw_deg) on
+    `device`; the draw comes from `generator` on its own device."""
+    u = torch.rand(2, generator=generator, device=generator.device)
+    pitch_deg = (15.0 + u[0] * 75.0).to(device)
+    yaw_deg = (u[1] * 360.0).to(device)
+    rotation, translation = pose_from_angles(pitch_deg, yaw_deg, radius)
+    return rotation, translation, pitch_deg, yaw_deg
+
+
+def direction_index(pitch_deg: float, yaw_deg: float) -> int:
+    """View-direction bucket as an index into DIRECTION_PROMPTS
+    (side=0, overhead=1, back=2, front=3; voxe_tpu/train/sds.py:495-501,
+    reference imaging_utils.py:206-214)."""
+    idx = 3
+    if 45.0 < yaw_deg < 315.0:
+        idx = 0
+    if 120.0 < yaw_deg < 240.0:
+        idx = 2
+    if pitch_deg < 25.0:
+        idx = 1
+    return idx
