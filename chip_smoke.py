@@ -4,18 +4,26 @@
 
 Phases, one line each (any failure exits non-zero; there is no CPU path):
   1. environment: torch / CUDA / nvcc versions, card name and power limit;
-  2. build every hand-written kernel from the checkout's sources (nvcc);
-  3. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes plus a ragged shape; kernel, plain and library
-     (timed only, never used by the port) times;
-  4. small-input check: the tiny-config edit step's grid gradient on the
-     card against the same step on the CPU (f32, same weights and draws);
-  5. the main path at full width: the SDS edit step (SD 2.0 at its
+  2. build every hand-written kernel from the checkout's sources (one nvcc
+     per source, started together);
+  3. each kernel against its plain PyTorch version on the card, at the main
+     paths' shapes plus ragged and hard shapes; kernel, plain and library
+     (timed only, never used by the port) times against the kernel's bound;
+  4. small-input checks: the tiny edit step's and a 16^3 shear-warp recon
+     step's grid gradients on the card against the same step on the CPU;
+  5. the edit main path at full width: the SDS edit step (SD 2.0 at its
      published widths with seeded random weights, 160^3 grid, 384^2 base)
-     through `make_sds_train_multi_step`: one warm-up call, then timed
-     calls; launch counts, median ms/step with its spread, peak memory,
-     and a per-layer breakdown;
-  6. the `kernels` JSON line, the card line, and the final JSON line.
+     through `make_sds_train_multi_step`: launch counts, median ms/step with
+     its spread, peak memory, a per-layer breakdown and the idle share;
+  6. the recon main path at full width: a 400^2 synthetic scene rendered by
+     the exact renderer (the compositing kernel's route 2), targets warped to
+     the 768^2 base lattice, shear-warp recon steps at 160^3 with the fused
+     compositing kernel and Adam (2 launches per step), a breakdown and the
+     idle share, then the held-out images through the tester (5 launches per
+     400^2 image);
+  7. the recon stage ladder end to end through its CLI module (4 stages, a few
+     iterations each), ending in a model_final.pth that loads back;
+  8. the `kernels` JSON line, the card line, and the final JSON line.
 Imports nothing from JAX or the JAX package.
 """
 from __future__ import annotations
@@ -24,7 +32,10 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,11 +43,20 @@ import torch.nn.functional as F
 
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
+from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
+from voxe_tpu_torch.data.dataset import PosedImagesDataset
+from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
+from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
+from voxe_tpu_torch.ops import composite as comp
+from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
+from voxe_tpu_torch.render.accumulate import _pad_samples
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
 from voxe_tpu_torch.render.shearwarp import lane_aligned_res, orient_base_image, render_shear_warp
+from voxe_tpu_torch.train import recon as train_recon
 from voxe_tpu_torch.train import sds as train_sds
 from voxe_tpu_torch.train.losses import density_correlation_loss
+from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, pose_spherical
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid
 
@@ -55,6 +75,18 @@ MAIN_SHAPE = (2, 4096, 5, 64)  # SD 2.x 64x64 level, CFG batch 2
 CHECKS = ((MAIN_SHAPE, 1.0), ((1, 2500, 2, 128), 1.0), ((1, 1000, 3, 64), 4.0))
 STEPS_PER_CALL, TIMED_CALLS = 3, 8
 GRID_RES, BASE, SD_VERSION = 160, lane_aligned_res(400), "2.0"
+# The compositing kernel is held at max|w - w_ref| and max|acc - acc_ref| <=
+# COMPOSITE_TOL. Both lie in [0, 1]; kernel and plain version take the same
+# f32 products in another order (a warp scan plus a carried chunk product
+# against a sequential cumprod), whose rounding is bounded by S * 2^-24
+# (6.1e-5 at S = 1024) and is ~1e-7 in practice.
+COMPOSITE_TOL = 1e-5
+# recon main path: the CLI's final stage on a 400^2 scene (dog2's size)
+SCENE, RECON_BASE = 400, lane_aligned_res(2 * 400)  # 768^2 base lattice, N = 589,824 rays
+RECON_TIMED_STEPS = 8
+RECON_RCFG = SHVoxGridRenderConfig(
+    num_samples_per_ray=256, camera_bounds=CameraBounds(1.8, 6.6), white_bkgd=True, use_fused_kernel=True,
+)  # held-out renders: render_num_samples_per_ray 1024 in chunks of 32,768 rays (the defaults)
 
 
 def log(phase: str, **kw) -> None:
@@ -80,7 +112,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def phase_kernels(dev) -> dict:
+def phase_flash_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = []
     for shape, q_scale in CHECKS:
@@ -114,6 +146,62 @@ def phase_kernels(dev) -> dict:
     log("kernel-time", kernel="flash_attn_fwd", shape=list(MAIN_SHAPE), ms=ms, plain_ms=plain_ms,
         sdpa_ms=library_ms, bound_ms=row["bound_ms"], tflops=flops / ms / 1e9)
     return row
+
+
+def composite_inputs(g, n, s, sigma_max, dev):
+    """sigma ~ U[0, sigma_max), sorted depths in [2, 6), |dir| ~ U[0.9, 1.4)."""
+    dens = torch.rand((n, s), generator=g, device=dev) * sigma_max
+    depths = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4.0 + 2.0, dim=-1).values
+    dirn = torch.rand((n,), generator=g, device=dev) * 0.5 + 0.9
+    return dens, depths, dirn
+
+
+def composite_bound_ms(n: int, s: int) -> float:
+    """Bytes: read sigma and depth, write w (12 B a sample); read |dir|,
+    write acc (8 B a ray). The few flops a sample are far below the byte time."""
+    return (12.0 * n * s + 8.0 * n) / H100_BYTES_PER_S * 1e3
+
+
+def phase_composite_kernel(dev) -> dict:
+    g = torch.Generator(device=dev).manual_seed(1)
+    # recon main path: 160 slices of a 768^2 base, slab-padded to 256 as
+    # accumulate pads them; held-out render chunk; ragged; dense (T
+    # underflows to 0 within the first ~130 of 512 samples)
+    dens, depths, dirn = composite_inputs(g, RECON_BASE * RECON_BASE, GRID_RES, 5.0, dev)
+    recon_shape = _pad_samples(dens, depths, "slab")[:2] + (dirn,)
+    cases = {
+        "recon_step_slab_padded": recon_shape,
+        "heldout_chunk": composite_inputs(g, 32768, 1024, 5.0, dev),
+        "ragged": composite_inputs(g, 1000, 37, 5.0, dev),
+        "dense_underflow": composite_inputs(g, 2048, 512, 50.0, dev),
+    }
+    errs = []
+    for name, args in cases.items():
+        w, acc = comp.composite_weights(*args)
+        torch.cuda.synchronize()
+        wr, ar = comp.composite_weights_reference(*args)
+        ew, ea = float((w - wr).abs().max()), float((acc - ar).abs().max())
+        log("kernel-check", kernel="composite_fwd", case=name, shape=list(args[0].shape), max_abs_err_w=ew,
+            max_abs_err_acc=ea, tol=COMPOSITE_TOL, acc_min=float(acc.min()), acc_max=float(acc.max()))
+        if not (ew <= COMPOSITE_TOL and ea <= COMPOSITE_TOL and torch.isfinite(w).all()):
+            raise AssertionError(f"composite_fwd disagrees with its plain version on {name}: {ew}, {ea}")
+        errs.append(max(ew, ea))
+    times = {}
+    for name in ("recon_step_slab_padded", "heldout_chunk"):
+        args = cases[name]
+        n, s = args[0].shape
+        ms = time_ms(lambda: comp.composite_weights(*args))
+        plain_ms = time_ms(lambda: comp.composite_weights_reference(*args), iters=5, warmup=1)
+        bound = composite_bound_ms(n, s)
+        times[name] = (ms, plain_ms, bound)
+        log("kernel-time", kernel="composite_fwd", case=name, shape=[n, s], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, share_of_bound=bound / ms, gbytes_per_s=(12.0 * n * s + 8.0 * n) / ms / 1e6)
+    ms, plain_ms, bound = times["recon_step_slab_padded"]
+    return dict(
+        name="composite_fwd", route="cuda", source="voxe_tpu_torch/csrc/composite_fwd.cu",
+        replaces="voxe_tpu/ops/composite.py:91", launches=0, max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+    )
 
 
 def make_grid(res: int, dev, seed: int = 0) -> VoxelGrid:
@@ -172,7 +260,8 @@ def phase_small_check(dev) -> None:
     torch.backends.cudnn.allow_tf32 = True  # the library default, back for the main path
 
 
-def phase_main(dev) -> dict:
+def phase_main(dev) -> int:
+    """The edit main path at full width; returns its flash launches."""
     t0 = time.perf_counter()
     sd = StableDiffusion(SD_VERSION, init_mode="random", seed=0, device=dev)
     text_by_dir = torch.stack([sd.get_text_embeds(f"a dog made of yarn, {d} view") for d in DIRECTION_PROMPTS])
@@ -191,7 +280,7 @@ def phase_main(dev) -> dict:
 
     before = grid.densities.detach().clone()
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()  # counts from here to the end of the main path's run
+    reset_counts()  # counts from here to the end of the edit path's run
     m = multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen)  # warm-up call
     torch.cuda.synchronize()
     losses, call_ms = [float(m["total_loss"])], []
@@ -201,21 +290,26 @@ def phase_main(dev) -> dict:
         losses.append(float(m["total_loss"]))  # reads the loss: a device sync
         torch.cuda.synchronize()
         call_ms.append((time.perf_counter() - t0) * 1e3 / STEPS_PER_CALL)
-    launches = fa.LAUNCHES
+    launches, composite_launches = fa.LAUNCHES, comp.LAUNCHES
     steps = STEPS_PER_CALL * (1 + TIMED_CALLS)
     ms_step = float(np.median(call_ms))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     moved = float((grid.densities.detach() - before).abs().max())
     log("main-path", steps=steps, ms_per_step_median=ms_step, ms_per_step_min=min(call_ms),
         ms_per_step_max=max(call_ms), timed_calls=TIMED_CALLS, peak_mem_gib=peak_gib,
-        flash_launches=launches, losses=losses, grid_max_change=moved)
+        flash_launches=launches, composite_launches=composite_launches, losses=losses, grid_max_change=moved)
     if launches != 5 * steps:
         raise AssertionError(f"flash kernel launched {launches} times in {steps} steps, want 5 per step")
     if not all(np.isfinite(losses)) or not moved > 0.0:
         raise AssertionError(f"main path: losses {losses}, grid change {moved}")
     breakdown(sd, grid, text_by_dir[3], ref_d)
     profile_call(lambda: multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen), STEPS_PER_CALL, ms_step)
-    return {"launches": launches}
+    return launches
+
+
+def reset_counts() -> None:
+    fa.reset_launches()
+    comp.reset_launches()
 
 
 def profile_call(fn, steps: int, ms_step: float) -> None:
@@ -249,6 +343,16 @@ def profile_call(fn, steps: int, ms_step: float) -> None:
     ), flush=True)
 
 
+def clocked(parts: dict, name: str, fn):
+    """Run fn between two device syncs; append its ms to parts[name]."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    parts.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
 def breakdown(sd, grid, text, ref_d) -> None:
     """Per-layer device time of one edit step at a fixed pose, with a
     synchronised host clock around each layer (median of 3)."""
@@ -259,12 +363,7 @@ def breakdown(sd, grid, text, ref_d) -> None:
     parts = {}
 
     def clock(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        parts.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return out
+        return clocked(parts, name, fn)
 
     for _ in range(4):
         g = grid.replace(densities=grid.densities.detach().requires_grad_(True),
@@ -282,22 +381,191 @@ def breakdown(sd, grid, text, ref_d) -> None:
     log("breakdown", **{f"{k}_ms": v for k, v in med.items()})
 
 
+def make_recon_grid(res: int, dev, seed: int = 0, gather_dtype: str = "bfloat16", sh_degree: int = 0):
+    """The recon CLI's grid: softplus field at the reference density scale,
+    SH features, uniform(-1, 1) values (the trainer's initial draw)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    config = VoxelGridConfig(
+        voxel_size=VoxelSize(*[3.0 / res] * 3),
+        density_preactivation="identity", density_postactivation="softplus", gather_dtype=gather_dtype,
+        expected_density_scale=compute_expected_density_scale_for_relu_field_grid((3.0, 3.0, 3.0)),
+    )
+    dens = torch.rand((res, res, res, 1), generator=g, device=dev) * 2 - 1
+    feats = torch.rand((res, res, res, 3 * (sh_degree + 1) ** 2), generator=g, device=dev) * 2 - 1
+    return VoxelGrid(densities=dens, features=feats, config=config)
+
+
+def phase_small_check_recon(dev) -> None:
+    """16^3 shear-warp recon step with the fused compositing kernel, f32, SH
+    degree 1: its grid gradient on the card against the same step on the CPU
+    (the plain version there)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(3)
+    base = (40, 40)
+    targets = torch.from_numpy(rng.uniform(0, 1, (2, *base, 3)).astype(np.float32))
+    masks = torch.from_numpy((rng.random((2, *base)) > 0.2).astype(np.float32))
+    pose = pose_spherical(70.0, 50.0, 4.0311)
+    poses = torch.from_numpy(np.stack([np.concatenate([pose.rotation, pose.translation], 1)] * 2))
+    grads, launches = {}, 0
+    for d in ("cpu", dev):
+        grid = make_recon_grid(16, "cpu", seed=4, gather_dtype="float32", sh_degree=1)
+        grid = grid.replace(densities=grid.densities.to(d), features=grid.features.to(d))
+        opt = train_sds.make_adam(grid, 0.03)
+        step = train_recon.make_recon_train_step_shearwarp(RECON_RCFG, opt, base, True)
+        before = comp.LAUNCHES
+        step(grid, targets.to(d), masks.to(d), poses.to(d), 1)
+        launches = comp.LAUNCHES - before
+        grads[str(d)] = torch.cat([grid.densities.grad.flatten(), grid.features.grad.flatten()]).cpu()
+    ref, got = grads["cpu"], grads[str(dev)]
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    log("small-check", what="16^3 shear-warp recon step grid gradient, card vs CPU (f32, fused kernel)",
+        rel_err=rel, tol=1e-4, card_composite_launches=launches)
+    if not (torch.isfinite(got).all() and rel < 1e-4 and launches == 2):
+        raise AssertionError(f"small-input recon step disagrees with the CPU: {rel}, launches {launches}")
+
+
+def phase_recon_main(dev, workdir: Path) -> int:
+    """The recon main path at full width; returns its composite launches."""
+    t0 = time.perf_counter()
+    scene = workdir / "scene"
+    generate_synthetic_scene(scene, num_train=8, num_test=2, image_size=SCENE, focal=float(SCENE),
+                             device=dev, use_fused_kernel=True)
+    for split in ("train", "test"):  # the CLI's default split layout, for the CLI phase
+        (scene / split).mkdir()
+        for p in sorted((scene / "images").glob(f"{split}_*.png")):
+            p.rename(scene / split / p.name)
+    train = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True, device=dev)
+    test = PosedImagesDataset(scene / "test", scene / "test_camera_params.json", rgba_white_bkgd=True, device=dev)
+    images, poses = train.device_arrays()
+    grid = make_recon_grid(GRID_RES, dev)
+    base_hw = (RECON_BASE, RECON_BASE)
+    targets, masks = train_recon.warp_dataset_to_base(images, poses, train.camera_intrinsics, grid, base_hw)
+    rcfg = RECON_RCFG.replace(camera_bounds=train.camera_bounds)
+    opt = train_sds.make_adam(grid, 0.03)
+    step = train_recon.make_recon_train_step_shearwarp(
+        rcfg, opt, base_hw, True, lr_schedule=train_recon.exponential_decay_staircase(0.03, 400, 0.1)
+    )
+    rng = np.random.default_rng(42)
+    torch.cuda.synchronize()
+    log("recon-setup", scene=f"{SCENE}x{SCENE}", train_images=len(train), test_images=len(test), grid=GRID_RES,
+        base=RECON_BASE, rays_per_step=RECON_BASE**2, slices=GRID_RES, target_coverage=float(masks.mean()),
+        setup_s=time.perf_counter() - t0)
+
+    before = grid.densities.detach().clone()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()  # counts from here to the end of the recon path's run
+    m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))  # warm-up call
+    losses, step_ms = [float(m["total_loss"])], []
+    for _ in range(RECON_TIMED_STEPS):
+        t1 = time.perf_counter()
+        m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))
+        losses.append(float(m["total_loss"]))  # reads the loss: a device sync
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    steps = 1 + RECON_TIMED_STEPS
+    train_launches, flash_launches = comp.LAUNCHES, fa.LAUNCHES
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    moved = float((grid.densities.detach() - before).abs().max())
+    ms_step = float(np.median(step_ms))
+    log("recon-main-path", steps=steps, ms_per_step_median=ms_step, ms_per_step_min=min(step_ms),
+        ms_per_step_max=max(step_ms), timed_steps=RECON_TIMED_STEPS, rays_per_s=RECON_BASE**2 / ms_step * 1e3,
+        peak_mem_gib=peak_gib, composite_launches=train_launches, flash_launches=flash_launches,
+        losses=losses, grid_max_change=moved)
+    if train_launches != 2 * steps or flash_launches != 0:
+        raise AssertionError(f"composite kernel launched {train_launches} times in {steps} steps, want 2 per step")
+    if not all(np.isfinite(losses)) or not moved > 0.0:
+        raise AssertionError(f"recon path: losses {losses}, grid change {moved}")
+
+    # held-out evaluation with the exact renderer (the kernel's route 2)
+    model = VolumetricModel(grid.replace(densities=grid.densities.detach(), features=grid.features.detach()), rcfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    metrics = test_sh_vox_grid_vol_mod_with_posed_images(model, test)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t1) * 1e3 / len(test)
+    eval_launches = comp.LAUNCHES - train_launches
+    log("recon-heldout", images=len(test), psnr=metrics["psnr"], ssim=metrics["ssim"], ms_per_image=eval_ms,
+        composite_launches=eval_launches, samples_per_ray=rcfg.render_num_samples_per_ray,
+        chunk=rcfg.parallel_rays_chunk_size)
+    if eval_launches != 5 * len(test) or not np.isfinite(metrics["psnr"]):
+        raise AssertionError(f"held-out render: {eval_launches} launches for {len(test)} images, want 5 each")
+    total_launches = comp.LAUNCHES
+    recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw)
+    profile_call(lambda: step(grid, targets, masks, poses, 0), 1, ms_step)
+    return total_launches
+
+
+def recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw) -> None:
+    """Per-layer time of the recon step with a synchronised host clock
+    around each layer (median of 3 after one warm-up)."""
+    parts = {}
+    for i in range(4):
+        idx = i % poses.shape[0]
+        pose = CameraPose(rotation=poses[idx][:, :3], translation=poses[idx][:, 3:])
+        m = masks[idx][..., None]
+        denom = torch.clamp(masks[idx].sum() * 3, min=1.0)
+        opt.zero_grad(set_to_none=True)
+        out = clocked(parts, "render_fwd", lambda: render_shear_warp(
+            grid, pose, rcfg, base_hw=base_hw, with_diffuse=True)[0])
+        total = clocked(parts, "loss", lambda: train_recon.photometric_losses(
+            out.colour.reshape(*base_hw, 3), out.extra["diffuse_colour"].reshape(*base_hw, 3),
+            targets[idx], True, mask=m, denom=denom)[0])
+        clocked(parts, "backward", total.backward)
+        clocked(parts, "adam", opt.step)
+    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    log("recon-breakdown", **{f"{k}_ms": v for k, v in med.items()})
+
+
+def phase_recon_cli(workdir: Path) -> None:
+    """The recon CLI module end to end: 4 stages (20^3 .. 160^3 grids on
+    50^2 .. 400^2 images) of a few shear-warp iterations with the fused
+    kernel, ending in model_final.pth."""
+    out = workdir / "cli_out"
+    t0 = time.perf_counter()
+    recon_cli.main([
+        "-d", str(workdir / "scene"), "-o", str(out), "--num_stages", "4", "--num_iterations_per_stage", "3",
+        "--fast_debug_mode", "True", "--use_fused_kernel", "True", "--device", "cuda",
+    ])
+    torch.cuda.synchronize()
+    model, info = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
+    dens = model.grid.densities
+    log("recon-cli", stages=4, iterations_per_stage=3, seconds=time.perf_counter() - t0,
+        final_grid=list(model.grid.grid_dims), finite=bool(torch.isfinite(dens).all()),
+        hemispherical_radius=info.get("hemispherical_radius"))
+    if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(dens).all():
+        raise AssertionError("recon CLI: model_final.pth does not hold a finite 160^3 grid")
+
+
+def build_all() -> None:
+    """One nvcc per kernel source, all started together."""
+    libs = {"flash_attn_fwd": fa.build, "composite_fwd": comp.build}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = {name: pool.submit(fn, verbose=True) for name, fn in libs.items()}
+        for name, fut in futures.items():
+            fut.result()  # raises if nvcc failed
+    log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    nvcc = subprocess.run([fa._nvcc(), "--version"], capture_output=True, text=True, check=True)
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"], capture_output=True, text=True, check=True)
     log("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=nvcc.stdout.strip().splitlines()[-1].replace(" ", "_"),
         card=card_line().replace(" ", "_"), count=torch.cuda.device_count())
-    t0 = time.perf_counter()
-    fa.build(verbose=True)  # prints ptxas' registers / shared memory / spills when it builds
-    log("build", kernel="flash_attn_fwd", seconds=time.perf_counter() - t0)
-    row = phase_kernels(dev)
+    build_all()  # prints ptxas' registers / shared memory / spills when it builds
+    flash_row = phase_flash_kernel(dev)
+    comp_row = phase_composite_kernel(dev)
     phase_small_check(dev)
-    row.update(phase_main(dev))
-    print(json.dumps({"kernels": [row]}), flush=True)
+    phase_small_check_recon(dev)
+    flash_row["launches"] = phase_main(dev)
+    with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
+        comp_row["launches"] = phase_recon_main(dev, Path(tmp))
+        phase_recon_cli(Path(tmp))
+    print(json.dumps({"kernels": [flash_row, comp_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

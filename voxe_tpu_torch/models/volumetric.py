@@ -1,0 +1,168 @@
+"""VolumetricModel: voxel grid + render configuration + checkpoint IO
+(counterpart of voxe_tpu/models/volumetric.py).
+
+Checkpoints use the JAX package's layout exactly: one npz archive holding
+`_densities` / `_features` as float32 arrays and a `__meta__` JSON document
+(format "voxe_tpu.volumetric_model.v1": grid config, render config, extra
+info), so a grid saved by either package loads in the other.
+
+The full-image render is the exact renderer in a Python loop over fixed
+chunks of `parallel_rays_chunk_size` rays, the last chunk padded with
+zero rays (as the JAX `lax.map` does), under `torch.no_grad()`.
+Not ported yet: the shear-warp screen render and the camera-path renders,
+and the attention-channel renders.
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig
+from voxe_tpu_torch.render.accumulate import RenderOut
+from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_sh_voxel_grid
+from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
+from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose
+
+FORMAT = "voxe_tpu.volumetric_model.v1"
+EXTRA_INFO = "extra_info"
+
+
+class VolumetricModel:
+    """A VoxelGrid and its render configuration."""
+
+    def __init__(
+        self,
+        grid: VoxelGrid,
+        render_config: SHVoxGridRenderConfig,
+        extra_info: Optional[Dict[str, Any]] = None,
+    ):
+        self.grid = grid
+        self.render_config = render_config
+        self.extra_info = dict(extra_info or {})
+
+    def render_rays(
+        self,
+        rays: Rays,
+        generator: Optional[torch.Generator] = None,
+        **config_overrides,
+    ) -> RenderOut:
+        """Differentiable render of flat rays (the train-time path)."""
+        cfg = self.render_config.replace(**config_overrides) if config_overrides else self.render_config
+        return render_sh_voxel_grid(self.grid, rays, cfg, generator=generator)
+
+    @torch.no_grad()
+    def render(
+        self,
+        camera_intrinsics: CameraIntrinsics,
+        pose: CameraPose,
+        **config_overrides,
+    ) -> RenderOut:
+        """Full image with the exact renderer: no jitter, AABB-bounded
+        sampling and `render_num_samples_per_ray` samples unless overridden.
+        Returns RenderOut with [H, W, C] leaves on the grid's device."""
+        if config_overrides.pop("use_shear_warp", False):
+            raise NotImplementedError("use_shear_warp: the shear-warp screen render is not ported yet")
+        cfg = self.render_config.replace(
+            perturb_sampled_points=False,
+            optimized_sampling=config_overrides.pop("optimized_sampling", True),
+            num_samples_per_ray=config_overrides.pop(
+                "num_samples_per_ray", self.render_config.render_num_samples_per_ray
+            ),
+            stochastic_density_noise_std=0.0,
+            **config_overrides,
+        )
+        dev = self.grid.densities.device
+        rays = flatten_rays(cast_rays(camera_intrinsics, pose.rotation, pose.translation, device=dev))
+        height, width = camera_intrinsics.height, camera_intrinsics.width
+        out = _chunked_render(self.grid, rays, cfg, height * width)
+        reshape = lambda t: t.reshape(height, width, -1)
+        return RenderOut(
+            colour=reshape(out.colour),
+            depth=reshape(out.depth),
+            extra={k: reshape(v) for k, v in out.extra.items()},
+        )
+
+    def save(self, path: Path, extra_info: Optional[Dict[str, Any]] = None) -> None:
+        save_volumetric_model(self, Path(path), extra_info)
+
+
+def _chunked_render(grid: VoxelGrid, rays: Rays, config: SHVoxGridRenderConfig, num_rays: int) -> RenderOut:
+    chunk = min(config.parallel_rays_chunk_size, num_rays)
+    num_chunks = -(-num_rays // chunk)
+    padded = num_chunks * chunk
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((padded - num_rays, x.shape[-1]))], dim=0)
+
+    origins, directions = pad(rays.origins.contiguous()), pad(rays.directions.contiguous())
+    outs = [
+        render_sh_voxel_grid(grid, Rays(origins[i : i + chunk], directions[i : i + chunk]), config)
+        for i in range(0, padded, chunk)
+    ]
+    cat = lambda ts: torch.cat(ts, dim=0)[:num_rays]
+    return RenderOut(
+        colour=cat([o.colour for o in outs]),
+        depth=cat([o.depth for o in outs]),
+        extra={k: cat([o.extra[k] for o in outs]) for k in outs[0].extra},
+    )
+
+
+def _jsonify(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonify(v) for v in obj]
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    if isinstance(obj, (np.ndarray, torch.Tensor)):
+        return np.asarray(obj.detach().cpu() if isinstance(obj, torch.Tensor) else obj).tolist()
+    return obj
+
+
+def save_volumetric_model(
+    model: VolumetricModel, path: Path, extra_info: Optional[Dict[str, Any]] = None
+) -> None:
+    """Write the npz + JSON checkpoint (any file extension)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    grid = model.grid
+    arrays = {
+        "_densities": grid.densities.detach().to("cpu", torch.float32).numpy(),
+        "_features": grid.features.detach().to("cpu", torch.float32).numpy(),
+    }
+    info = dict(model.extra_info)
+    info.update(extra_info or {})
+    render_cfg = dataclasses.asdict(model.render_config)
+    render_cfg["camera_bounds"] = [float(v) for v in model.render_config.camera_bounds]
+    meta = {
+        "format": FORMAT,
+        "grid_config": grid.config.to_json_dict(),
+        "render_config": render_cfg,
+        EXTRA_INFO: _jsonify(info),
+    }
+    buf = io.BytesIO()
+    np.savez(buf, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **arrays)
+    path.write_bytes(buf.getvalue())
+
+
+def load_volumetric_model(path: Path, device="cuda") -> Tuple[VolumetricModel, Dict[str, Any]]:
+    """Load a checkpoint written by either package onto `device`.
+    Returns (model, extra_info). A checkpoint with attention channels raises:
+    they come with the refinement slice."""
+    with np.load(Path(path), allow_pickle=False) as data:
+        meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
+        if "_attn" in data or "_orig_densities" in data:
+            raise NotImplementedError("attention-channel grids are not ported yet")
+        densities = torch.from_numpy(np.array(data["_densities"], np.float32)).to(device)
+        features = torch.from_numpy(np.array(data["_features"], np.float32)).to(device)
+    grid = VoxelGrid(densities, features, VoxelGridConfig.from_json_dict(meta["grid_config"]))
+    rc = dict(meta["render_config"])
+    rc["camera_bounds"] = CameraBounds(*[float(v) for v in rc["camera_bounds"]])
+    extra_info = meta.get(EXTRA_INFO, {})
+    return VolumetricModel(grid, SHVoxGridRenderConfig(**rc), extra_info), extra_info

@@ -17,23 +17,20 @@ a CUDA tensor goes to the kernel or the call raises — there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import threading
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flash_attn_fwd.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+from voxe_tpu_torch.ops.cuda_build import CudaLibrary
+
 SUPPORTED_HEAD_DIMS = (64, 128)
 
+_LIB = CudaLibrary(
+    "flash_attn_fwd.cu", "voxe_flash_attn_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+)
 LAUNCHES = 0  # kernel launches since import (or the last reset)
-_lib = None
-_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -41,45 +38,10 @@ def reset_launches() -> None:
     LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    toolkit = Path("/usr/local/cuda/bin/nvcc")
-    return str(toolkit) if toolkit.exists() else "nvcc"
-
-
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False):
     """Compile the kernel (once per source content) and return the library
     path. `verbose` prints ptxas' report when a build happens."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"libflash_attn_fwd-{digest}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
-
-
-def _load():
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.voxe_flash_attn_fwd
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    return _LIB.build(verbose)
 
 
 def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -121,9 +83,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     if Lq == 0 or Lk == 0:
         raise ValueError("flash_attention: empty sequence")
     out = torch.empty_like(q)
-    lib = _load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.voxe_flash_attn_fwd(
+    err = _LIB.function()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Lq, Lk, D, float(scale), stream,
     )

@@ -1,7 +1,21 @@
-"""Render configuration (counterpart of voxe_tpu/render/interface.py;
-only `SHVoxGridRenderConfig` so far — the exact renderer is not ported yet)."""
-import dataclasses
+"""Render configuration and the exact SH-voxel-grid render procedure
+(counterpart of voxe_tpu/render/interface.py: sampler -> point processor ->
+accumulator)."""
+from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import torch
+
+from voxe_tpu_torch.grid.voxels import VoxelGrid
+from voxe_tpu_torch.render.accumulate import RenderOut, accumulate_radiance_density_on_rays
+from voxe_tpu_torch.render.process import process_points_with_sh_voxel_grid
+from voxe_tpu_torch.render.rays import Rays, flatten_rays
+from voxe_tpu_torch.render.sample import (
+    sample_aabb_bound_uniform_points_on_rays,
+    sample_uniform_points_on_rays,
+)
 from voxe_tpu_torch.utils.camera import CameraBounds
 
 
@@ -22,8 +36,62 @@ class SHVoxGridRenderConfig:
     render_num_samples_per_ray: int = 1024
     parallel_rays_chunk_size: int = 32768
 
-    # the fused compositing kernel is not ported yet; setting it raises
+    # compositing through the hand-written CUDA kernel (ops/composite.py)
     use_fused_kernel: bool = False
 
     def replace(self, **kwargs) -> "SHVoxGridRenderConfig":
         return dataclasses.replace(self, **kwargs)
+
+
+def _sample(
+    voxel_grid: VoxelGrid,
+    rays: Rays,
+    config: SHVoxGridRenderConfig,
+    generator: Optional[torch.Generator],
+    t_rand: Optional[torch.Tensor] = None,
+):
+    """Sample points on rays: jittered when the config asks for it and a
+    generator (or an explicit `t_rand` draw) is given."""
+    perturb = config.perturb_sampled_points and (generator is not None or t_rand is not None)
+    if config.optimized_sampling:
+        return sample_aabb_bound_uniform_points_on_rays(
+            rays, bounds=config.camera_bounds, num_samples=config.num_samples_per_ray,
+            aabb=voxel_grid.aabb, perturb=perturb, generator=generator, t_rand=t_rand,
+        )
+    return sample_uniform_points_on_rays(
+        rays, bounds=config.camera_bounds, num_samples=config.num_samples_per_ray,
+        perturb=perturb, linear_disparity_sampling=config.linear_disparity_sampling,
+        generator=generator, t_rand=t_rand,
+    )
+
+
+def render_sh_voxel_grid(
+    voxel_grid: VoxelGrid,
+    rays: Rays,
+    config: SHVoxGridRenderConfig,
+    generator: Optional[torch.Generator] = None,
+    extra_debug_info: bool = False,
+    t_rand: Optional[torch.Tensor] = None,
+) -> RenderOut:
+    """Render flat rays against an SH voxel grid. With no generator (and no
+    `t_rand`) there is no jitter and no density noise: the deterministic
+    eval mode."""
+    rays = flatten_rays(rays)
+    sampled = _sample(voxel_grid, rays, config, generator, t_rand)
+    if config.use_fused_kernel:
+        from voxe_tpu_torch.ops.composite import fused_shade_composite
+
+        return fused_shade_composite(voxel_grid, sampled, rays, config, generator, extra_debug_info)
+    processed = process_points_with_sh_voxel_grid(
+        sampled, rays, voxel_grid, render_diffuse=config.render_diffuse
+    )
+    return accumulate_radiance_density_on_rays(
+        processed,
+        sampled.depths,
+        rays,
+        stochastic_density_noise_std=config.stochastic_density_noise_std,
+        white_bkgd=config.white_bkgd,
+        background_value=1.0,
+        extra_debug_info=extra_debug_info,
+        generator=generator,
+    )

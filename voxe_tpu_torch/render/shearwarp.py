@@ -1,39 +1,54 @@
-"""Shear-warp volumetric renderer, cubic one-trace path
-(counterpart of voxe_tpu/render/shearwarp.py).
+"""Shear-warp volumetric renderer (counterpart of
+voxe_tpu/render/shearwarp.py).
 
 The volume is marched slice by slice along its principal axis; every
 slice -> base-plane resample is separable, so it is two banded interpolation
 matrices contracted with batched matmuls (cuBLAS here, as XLA's dots were on
-the TPU). Compositing streams over slices: pass 1 resamples density only and
-builds the Beer-Lambert weights with a triangular-matrix cumulative sum;
-pass 2 shades and composites blocks of slices under
-`torch.utils.checkpoint`, so the [N, S, C] radiance is never kept for the
-backward. Gradients reach the grid through matmuls only.
+the TPU). Two compositing tails, as in the JAX package:
 
-What is ported: `render_shear_warp` for cubic grids (the trainers' case), on
-the streamed path, one card. The marching branch is decided on the host from
-the pose, which is the same arithmetic the JAX package does with a traced
-permutation matrix and a traced `flip_k`. The non-cubic six-branch path, the
-pose guards, density noise, the monolithic/fused-kernel path and the
-attention/diffuse render modes of the refinement stage are not ported yet;
-the first three raise.
+- streamed (the default): pass 1 resamples density only and builds the
+  Beer-Lambert weights with a triangular-matrix cumulative sum; pass 2 shades
+  and composites blocks of slices under `torch.utils.checkpoint`, so the
+  [N, S, C] radiance is never kept for the backward;
+- monolithic (with `config.use_fused_kernel`): every slice is resampled into one
+  [U*V, S, C+1] tensor, shaded, and composited by
+  `accumulate_radiance_density_on_rays(final_delta="slab")` — through the
+  hand-written compositing kernel when the config asks for it.
+
+The marching branch (axis and direction) is picked on the host from the
+pose, which is the arithmetic the JAX package does with a traced
+permutation (cubic grids) or a six-way switch (any grid); one code path
+serves every grid shape. On the streamed tail negative branches reverse the
+[S]-row matrices (`flip_k`); on the monolithic tail they reverse the volume
+with `.flip(0)`, as the JAX static branches do. Gradients reach the grid
+through matmuls only. Host-side helpers: the pose guards, the base-window
+geometry, `screen_to_base` and the target warp `warp_image_to_base`.
+
+Not ported yet: density noise (raises), the attention/diffuse-only render
+modes of the refinement stage, and the screen-space render.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from voxe_tpu_torch.grid.voxels import ACTIVATIONS, VoxelGrid
-from voxe_tpu_torch.render.accumulate import RenderOut, safe_disparity
+from voxe_tpu_torch.render.accumulate import (
+    RenderOut,
+    accumulate_radiance_density_on_rays,
+    safe_disparity,
+)
+from voxe_tpu_torch.render.rays import Rays, cast_rays
 from voxe_tpu_torch.render.sh import evaluate_spherical_harmonics
-from voxe_tpu_torch.utils.camera import CameraPose
+from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
     EXTRA_DISPARITY,
+    INFINITY,
     NUM_COLOUR_CHANNELS,
 )
 
@@ -51,7 +66,7 @@ SLICE_BLOCK = 32  # slices per checkpointed shading block
 
 class BaseImageGeometry(NamedTuple):
     eye: torch.Tensor  # [3] camera center (world)
-    dirs: torch.Tensor  # [U*V, 3] unit ray dir per base pixel (world order)
+    dirs: Optional[torch.Tensor]  # [U*V, 3] unit ray dir per base pixel (world order); None from compute_base_geometry
     lo: torch.Tensor  # [2] base window lower corner (grid coords, a/b)
     hi: torch.Tensor  # [2]
     perm_index: int  # which of the 6 marching branches ran
@@ -96,11 +111,13 @@ def _streamed_composite(
     grid_config,
     white_bkgd: bool,
     flip_k: bool,
+    with_diffuse: bool = False,
 ) -> RenderOut:
     """Slice-streamed resample + composite; every per-sample tensor is
     slice-major ([S, N] / [S, U, V, C]). With `flip_k` the s axis runs in
     volume order while marching runs s descending: the triangular matrix and
-    the deltas flip instead of the volume."""
+    the deltas flip instead of the volume. `with_diffuse` also composites the
+    degree-0 (diffuse) shading into extra["diffuse_colour"]."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -139,33 +156,98 @@ def _streamed_composite(
     dirs_b = dirs[None, :, :]
     zero = torch.zeros((), dtype=dt, device=vol.device)
 
+    def composite(w_b, raw_rad, in_b):
+        colour_b = torch.where(in_b[..., None], torch.sigmoid(raw_rad), zero)
+        return (w_b.float()[..., None] * colour_b.float()).sum(0)  # f32 accumulation
+
     def shade_block(vol_b, Wa_b, Wb_b, w_b, in_b):
         Sb, Cf = vol_b.shape[0], vol_b.shape[-1]
         tmp = torch.bmm(Wa_b, vol_b.reshape(Sb, A, B * Cf)).reshape(Sb, U, B, Cf)
         res = torch.einsum("svb,subc->suvc", Wb_b, tmp)  # [Sb, U, V, Cf]
         feats = f_post(res).reshape(Sb, N, num_channels, n_coeffs)
         raw_rad = evaluate_spherical_harmonics(sh_degree, feats, dirs_b)  # [Sb, N, C]
-        colour_b = torch.where(in_b[..., None], torch.sigmoid(raw_rad), zero)
-        return (w_b.float()[..., None] * colour_b.float()).sum(0)  # f32 accumulation
+        out = composite(w_b, raw_rad, in_b)
+        if not with_diffuse:
+            return out, out.new_zeros(())
+        if sh_degree == 0:  # degree 0 is the diffuse shading already
+            return out, out
+        diff = evaluate_spherical_harmonics(0, feats[..., :1], dirs_b)
+        return out, composite(w_b, diff, in_b)
 
     colour_render = torch.zeros((N, num_channels), dtype=torch.float32, device=vol.device)
+    diffuse_render = torch.zeros_like(colour_render)
     for start in range(0, S, SLICE_BLOCK):
         stop = min(S, start + SLICE_BLOCK)
-        colour_render = colour_render + checkpoint(
+        c_b, d_b = checkpoint(
             shade_block,
             feats_pre[start:stop], Wa_dt[start:stop], Wb_dt[start:stop],
             w_dt[start:stop], inside_sn[start:stop],
             use_reentrant=False,
         )
+        colour_render = colour_render + c_b
+        diffuse_render = diffuse_render + d_b
     if white_bkgd:
         colour_render = colour_render + (1.0 - acc_render)
+        diffuse_render = diffuse_render + (1.0 - acc_render)
 
     depth_render = torch.sum(t_sn * weights, dim=0).reshape(N, 1)
     extra = {
         EXTRA_DISPARITY: safe_disparity(depth_render, acc_render),
         EXTRA_ACCUMULATED_WEIGHTS: acc_render,
     }
+    if with_diffuse:
+        extra["diffuse_colour"] = diffuse_render
     return RenderOut(colour=colour_render, depth=depth_render, extra=extra)
+
+
+def _monolithic_composite(
+    vol: torch.Tensor,  # [S, A, B, C+1] pre-activated, marching order
+    Wa: torch.Tensor,  # [S, U, A]
+    Wb: torch.Tensor,  # [S, V, B]
+    t_slices: torch.Tensor,  # [N, S] depth of each slice crossing
+    dirs: torch.Tensor,  # [N, 3] unit ray dirs (world order)
+    eye_w: torch.Tensor,  # [3]
+    inside: torch.Tensor,  # [N, S] bool in-volume mask
+    config,
+    grid_config,
+    with_diffuse: bool,
+) -> RenderOut:
+    """Resample every slice onto the base lattice ([U*V, S, C+1]), shade,
+    and composite with accumulate(final_delta="slab"), through the fused
+    kernel when `config.use_fused_kernel`. The density stays f32 through the
+    weights math; the radiance stays in the volume dtype."""
+    S, A, B, C1 = vol.shape
+    U, V = Wa.shape[1], Wb.shape[1]
+    N = U * V
+    dt = vol.dtype
+    tmp = torch.bmm(Wa.to(dt), vol.reshape(S, A, B * C1)).reshape(S, U, B, C1)
+    res = torch.einsum("svb,subc->suvc", Wb.to(dt), tmp)  # [S, U, V, C+1]
+    resampled = res.permute(1, 2, 0, 3).reshape(N, S, C1)
+    feats = ACTIVATIONS[grid_config.feature_postactivation](resampled[..., :-1])
+    dens = ACTIVATIONS[grid_config.density_postactivation](resampled[..., -1].float())
+    dens = torch.where(inside, dens, torch.zeros((), device=dens.device))
+
+    num_channels = NUM_COLOUR_CHANNELS if C1 > 2 else 1
+    sh_coeffs = feats.reshape(N, S, num_channels, -1)
+    sh_degree = int(math.isqrt(sh_coeffs.shape[-1])) - 1
+    rays_c = Rays(origins=eye_w.expand(N, 3), directions=dirs)
+
+    def tail(degree, coeffs):
+        raw_radiance = evaluate_spherical_harmonics(degree, coeffs, dirs[:, None, :])
+        raw_radiance = torch.where(
+            inside[..., None], raw_radiance, torch.full((), -INFINITY, dtype=raw_radiance.dtype, device=dens.device)
+        )
+        return accumulate_radiance_density_on_rays(
+            (raw_radiance, dens), t_slices, rays_c,
+            white_bkgd=config.white_bkgd, background_value=1.0,
+            final_delta="slab", use_fused_kernel=getattr(config, "use_fused_kernel", False),
+        )
+
+    out = tail(sh_degree, sh_coeffs)
+    if with_diffuse:
+        out_diff = tail(0, sh_coeffs[..., :1])
+        out = RenderOut(out.colour, out.depth, {**out.extra, "diffuse_colour": out_diff.colour})
+    return out
 
 
 def _render_canonical(
@@ -178,9 +260,11 @@ def _render_canonical(
     grid_config,
     unpermute_mat: torch.Tensor,  # [3, 3], world = canonical @ M
     flip_k: bool,
+    with_diffuse: bool = False,
+    stream_composite: bool = True,
 ):
-    """Core shear-warp in canonical orientation (streamed branch). Returns
-    (RenderOut over [U*V] base pixels, dirs, lo, hi)."""
+    """Core shear-warp in canonical orientation. Returns (RenderOut over
+    [U*V] base pixels, dirs, lo, hi)."""
     S, A, B, _ = vol.shape
     U, V = base_hw
     f, dev = torch.float32, vol.device
@@ -230,11 +314,19 @@ def _render_canonical(
 
     in_a = (src_a >= -0.5) & (src_a <= A - 0.5)
     in_b = (src_b >= -0.5) & (src_b <= B - 0.5)
-    inside_sn = (in_a[:, :, None] & in_b[:, None, :]).reshape(S, U * V)
-    t_sn = tau_o[:, None] * v_norm[None, :]
-    out = _streamed_composite(
-        vol, Wa, Wb, t_sn, dirs, inside_sn, grid_config, config.white_bkgd, flip_k
-    )
+    if stream_composite:
+        inside_sn = (in_a[:, :, None] & in_b[:, None, :]).reshape(S, U * V)
+        t_sn = tau_o[:, None] * v_norm[None, :]
+        out = _streamed_composite(
+            vol, Wa, Wb, t_sn, dirs, inside_sn, grid_config, config.white_bkgd, flip_k,
+            with_diffuse=with_diffuse,
+        )
+    else:
+        inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S)
+        t_slices = v_norm[:, None] * tau_o[None, :]
+        out = _monolithic_composite(
+            vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse
+        )
     return out, dirs, lo, hi
 
 
@@ -243,18 +335,19 @@ def render_shear_warp(
     pose: CameraPose,
     config,
     base_hw: Tuple[int, int] = (256, 256),
+    with_diffuse: bool = False,
 ) -> Tuple[RenderOut, BaseImageGeometry]:
-    """Render the base-plane image of a cubic `voxel_grid` seen from `pose`.
+    """Render the base-plane image of `voxel_grid` seen from `pose`.
 
     Returns (RenderOut with [U*V, ...] leaves, BaseImageGeometry). The grid's
-    tensors may require grad; gradients flow through matmuls only."""
-    if getattr(config, "use_fused_kernel", False):
-        raise NotImplementedError("the fused compositing kernel is not ported yet")
+    tensors may require grad; gradients flow through matmuls only.
+    `with_diffuse` also renders the degree-0 shading into
+    extra["diffuse_colour"] from the same resample. `config.use_fused_kernel`
+    selects the monolithic tail, where the compositing kernel lives."""
+    stream_composite = not getattr(config, "use_fused_kernel", False)
     if getattr(config, "stochastic_density_noise_std", 0.0) > 0.0:
         raise NotImplementedError("stochastic density noise is not ported yet")
     grid_dims = tuple(int(d) for d in voxel_grid.grid_dims)
-    if len(set(grid_dims)) != 1:
-        raise NotImplementedError("only cubic grids are ported (six-branch path waits)")
 
     cfg = voxel_grid.config
     pre_density = ACTIVATIONS[cfg.density_preactivation](
@@ -281,14 +374,19 @@ def render_shear_warp(
     vs = M @ vsizes
     lo3 = M @ aabb_lo
     if not positive:  # march toward -k: far face becomes the origin
-        S_k = float(grid_dims[0])
+        S_k = float(grid_dims[_PERMS[axis][2]])
         lo3 = torch.stack([lo3[0], lo3[1], lo3[2] + (S_k - 1.0) * vs[2]])
         vs = torch.stack([vs[0], vs[1], -vs[2]])
     eye_g = (M @ eye_w - lo3) / vs
-    volp = unified.permute(*_VOLUME_PERMS[axis]).contiguous()
+    volp = unified.permute(*_VOLUME_PERMS[axis])
+    if not (positive or stream_composite):
+        volp = volp.flip(0)  # the monolithic tail marches the reversed volume
+    volp = volp.contiguous()
 
     out, dirs_w, lo2, hi2 = _render_canonical(
-        volp, eye_g, vs, lo3, base_hw, config, cfg, unpermute_mat=M, flip_k=not positive
+        volp, eye_g, vs, lo3, base_hw, config, cfg, unpermute_mat=M,
+        flip_k=stream_composite and not positive,
+        with_diffuse=with_diffuse, stream_composite=stream_composite,
     )
     geom = BaseImageGeometry(eye=eye_w, dirs=dirs_w, lo=lo2, hi=hi2, perm_index=branch)
     return out, geom
@@ -319,3 +417,173 @@ def orient_base_image(img: torch.Tensor, rotation) -> torch.Tensor:
     if col_right < 0:
         img = img.flip(1)
     return img
+
+
+# ----------------------------------------------------------------------------------
+# host-side pose guards (NumPy)
+# ----------------------------------------------------------------------------------
+
+
+def _all_axis_margins(voxel_grid: VoxelGrid, eyes: np.ndarray, view_dirs: np.ndarray) -> np.ndarray:
+    """[N, 3] eye-outside-AABB margin in voxels along every axis, marching
+    toward sign(view_dirs[axis]): toward +k the eye must clear the low face,
+    toward -k the high one."""
+    cfg = voxel_grid.config
+    dims = np.array(voxel_grid.grid_dims, np.float64)
+    vsizes = np.array(list(cfg.voxel_size), np.float64)
+    loc = np.array(list(cfg.grid_location), np.float64)
+    aabb_lo = loc - (dims - 1.0) / 2.0 * vsizes
+    aabb_hi = loc + (dims - 1.0) / 2.0 * vsizes
+    return np.where(view_dirs > 0.0, (aabb_lo - eyes) / vsizes, (eyes - aabb_hi) / vsizes)
+
+
+def shear_warp_pose_margins(voxel_grid: VoxelGrid, eyes, view_dirs) -> np.ndarray:
+    """Per pose, the margin in voxels by which the eye sits outside the grid
+    AABB along its marching axis; >= 0.5 means the renderer's e_k clamp is a
+    no-op and the rendered geometry is right."""
+    eyes = np.asarray(eyes, np.float64).reshape(-1, 3)
+    view_dirs = np.asarray(view_dirs, np.float64).reshape(-1, 3)
+    all_m = _all_axis_margins(voxel_grid, eyes, view_dirs)
+    k = np.argmax(np.abs(view_dirs), axis=1)
+    return np.take_along_axis(all_m, k[:, None], axis=1)[:, 0]
+
+
+def shear_warp_supports_pose(voxel_grid: VoxelGrid, pose: CameraPose, min_margin: float = 0.5) -> bool:
+    """True when `pose`'s eye clears the grid AABB along its marching axis by
+    at least `min_margin` voxels."""
+    eye = _host_f32(pose.translation).astype(np.float64).reshape(1, 3)
+    view = -_host_f32(pose.rotation).astype(np.float64)[:, 2].reshape(1, 3)
+    return bool(shear_warp_pose_margins(voxel_grid, eye, view)[0] >= min_margin)
+
+
+def check_shear_warp_poses(voxel_grid: VoxelGrid, poses, context: str, min_margin: float = 0.5) -> None:
+    """Raise ValueError when any [N, 3, 4] pose puts the camera inside (or
+    within `min_margin` voxels of) the grid AABB along its marching axis."""
+    poses = np.asarray(poses, np.float64)
+    margins = shear_warp_pose_margins(voxel_grid, poses[:, :, 3], -poses[:, :, 2])
+    bad = np.flatnonzero(margins < min_margin)
+    if bad.size:
+        worst = int(bad[np.argmin(margins[bad])])
+        raise ValueError(
+            f"{context}: {bad.size}/{len(poses)} camera pose(s) sit inside or "
+            f"within {min_margin} voxels of the voxel grid's AABB along their "
+            f"marching axis (worst: pose {worst}, margin {margins[worst]:.2f} "
+            "voxels) — the shear-warp path cannot render from inside the volume. "
+            "Use the exact renderer, shrink the grid's world size, or move the "
+            "cameras outside the grid."
+        )
+
+
+# ----------------------------------------------------------------------------------
+# base-plane geometry and the target warp (data preparation, no gradient)
+# ----------------------------------------------------------------------------------
+
+
+def compute_base_geometry(voxel_grid: VoxelGrid, pose: CameraPose) -> BaseImageGeometry:
+    """Host-side base-window geometry (lo/hi + branch) of `pose`, without
+    rendering; it mirrors `render_shear_warp`'s branch and window math.
+    `dirs` is None."""
+    cfg = voxel_grid.config
+    dims = np.array(voxel_grid.grid_dims, np.float64)
+    vsizes = np.array(list(cfg.voxel_size), np.float64)
+    loc = np.array(list(cfg.grid_location), np.float64)
+    aabb_lo = loc - (dims - 1.0) / 2.0 * vsizes
+
+    eye_w = _host_f32(pose.translation).astype(np.float64).reshape(3)
+    rot = _host_f32(pose.rotation).astype(np.float64)
+    view_dir = -rot[:, 2]
+    axis = int(np.argmax(np.abs(view_dir)))
+    positive = int(view_dir[axis] > 0.0)
+    a_ax, b_ax, k_ax = _PERMS[axis]
+
+    vs = np.array([vsizes[a_ax], vsizes[b_ax], vsizes[k_ax]])
+    lo3 = np.array([aabb_lo[a_ax], aabb_lo[b_ax], aabb_lo[k_ax]])
+    dimp = np.array([dims[a_ax], dims[b_ax], dims[k_ax]])
+    if not positive:
+        lo3[2] += (dimp[2] - 1.0) * vs[2]
+        vs[2] = -vs[2]
+    eye_g = (np.array([eye_w[a_ax], eye_w[b_ax], eye_w[k_ax]]) - lo3) / vs
+
+    S, A, B = int(dimp[2]), int(dimp[0]), int(dimp[1])
+    e_a, e_b = eye_g[0], eye_g[1]
+    e_k = min(eye_g[2], -0.5)
+    far = (S - 1.0 - e_k) / (0.0 - e_k)
+    a_corners = np.array([0.0, A - 1.0])
+    b_corners = np.array([0.0, B - 1.0])
+    a_proj = e_a + (a_corners - e_a) / far
+    b_proj = e_b + (b_corners - e_b) / far
+    lo = np.array([min(a_corners.min(), a_proj.min()), min(b_corners.min(), b_proj.min())], np.float32)
+    hi = np.array([max(a_corners.max(), a_proj.max()), max(b_corners.max(), b_proj.max())], np.float32)
+    return BaseImageGeometry(
+        eye=torch.from_numpy(eye_w.astype(np.float32)), dirs=None,
+        lo=torch.from_numpy(lo), hi=torch.from_numpy(hi), perm_index=axis * 2 + positive,
+    )
+
+
+def screen_to_base(
+    pose: CameraPose,
+    intrinsics: CameraIntrinsics,
+    geom: BaseImageGeometry,
+    voxel_grid: VoxelGrid,
+    base_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """[H, W, 2] fractional base-pixel coords of every screen pixel (f32 on
+    the CPU); pixels whose base plane lies behind the camera get -10."""
+    cfg = voxel_grid.config
+    dims = np.array(voxel_grid.grid_dims, np.float32)
+    vsizes = np.array(list(cfg.voxel_size), np.float32)
+    loc = np.array(list(cfg.grid_location), np.float32)
+    aabb_lo = loc - (dims - 1.0) / 2.0 * vsizes
+
+    rays = cast_rays(intrinsics, _host_f32(pose.rotation), _host_f32(pose.translation))
+    d = rays.directions.reshape(-1, 3)
+    o = rays.origins.reshape(-1, 3)
+    U, V = base_hw
+    axis, positive = geom.perm_index // 2, geom.perm_index % 2
+    sel = list(_PERMS[axis])
+    vs = torch.from_numpy(vsizes[sel].copy())
+    lo3 = torch.from_numpy(aabb_lo[sel].copy())
+    if not positive:
+        lo3[2] = lo3[2] + (float(dims[sel[2]]) - 1.0) * vs[2]
+        vs[2] = -vs[2]
+    d_g = d[:, sel] / vs
+    o_g = (o[:, sel] - lo3) / vs
+    t = (0.0 - o_g[:, 2]) / d_g[:, 2]  # intersect the base plane k = 0
+    a0 = o_g[:, 0] + t * d_g[:, 0]
+    b0 = o_g[:, 1] + t * d_g[:, 1]
+    lo, hi = geom.lo.cpu(), geom.hi.cpu()
+    ui = (a0 - lo[0]) / (hi[0] - lo[0]) * U - 0.5
+    vi = (b0 - lo[1]) / (hi[1] - lo[1]) * V - 0.5
+    behind = t <= 0.0
+    ui = torch.where(behind, torch.full_like(ui, -10.0), ui)
+    vi = torch.where(behind, torch.full_like(vi, -10.0), vi)
+    return torch.stack([ui, vi], dim=-1).reshape(intrinsics.height, intrinsics.width, 2)
+
+
+def warp_image_to_base(
+    image: torch.Tensor,  # [H, W, C] screen-space image (data)
+    coords: torch.Tensor,  # [H, W, 2] from screen_to_base
+    base_hw: Tuple[int, int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Splat a screen image onto the base lattice with bilinear weights.
+    Returns (base image [U, V, C], coverage mask [U, V] in {0, 1})."""
+    U, V = base_hw
+    C = image.shape[-1]
+    ui = coords[..., 0].reshape(-1)
+    vi = coords[..., 1].reshape(-1)
+    px = image.reshape(-1, C).float()
+    u0 = torch.floor(ui).to(torch.int64)
+    v0 = torch.floor(vi).to(torch.int64)
+    acc = torch.zeros((U * V, C), dtype=torch.float32, device=image.device)
+    wacc = torch.zeros((U * V,), dtype=torch.float32, device=image.device)
+    for du in (0, 1):
+        for dv in (0, 1):
+            uu, vv = u0 + du, v0 + dv
+            w = torch.clamp(1.0 - torch.abs(ui - uu), min=0.0) * torch.clamp(1.0 - torch.abs(vi - vv), min=0.0)
+            valid = (uu >= 0) & (uu < U) & (vv >= 0) & (vv < V)
+            w = torch.where(valid, w, torch.zeros((), device=w.device))
+            flat = uu.clamp(0, U - 1) * V + vv.clamp(0, V - 1)
+            acc.index_add_(0, flat, w[:, None] * px)
+            wacc.index_add_(0, flat, w)
+    base = acc / torch.clamp(wacc, min=1e-8)[:, None]
+    return base.reshape(U, V, C), (wacc > 1e-6).reshape(U, V).float()

@@ -113,3 +113,24 @@ def direction_index(pitch_deg: float, yaw_deg: float) -> int:
     if pitch_deg < 25.0:
         idx = 1
     return idx
+
+
+def to8b(x) -> np.ndarray:
+    return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8)
+
+
+def adjust_dynamic_range(data, drange_in, drange_out):
+    """Linearly remap `data` from `drange_in` to `drange_out`, clipped to the
+    output range (the dataset's image range)."""
+    if tuple(drange_in) == tuple(drange_out):
+        return data
+    scale = (np.float32(drange_out[1]) - np.float32(drange_out[0])) / (
+        np.float32(drange_in[1]) - np.float32(drange_in[0])
+    )
+    out = (data - np.float32(drange_in[0])) * scale + np.float32(drange_out[0])
+    return out.clip(drange_out[0], drange_out[1])
+
+
+def classify_view_direction(pitch_deg: float, yaw_deg: float) -> str:
+    """Bucket a hemisphere pose into {front, side, back, overhead}."""
+    return ("side", "overhead", "back", "front")[direction_index(pitch_deg, yaw_deg)]

@@ -1,10 +1,24 @@
-"""Miscellaneous helpers (counterpart of voxe_tpu/utils/misc.py; only what
-the edit step needs)."""
-from typing import Tuple
+"""Miscellaneous helpers (counterpart of voxe_tpu/utils/misc.py)."""
+from pathlib import Path
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
 from voxe_tpu_torch.utils.constants import NUM_COORD_DIMENSIONS
+
+
+def compute_thre3d_grid_sizes(
+    final_required_resolution: Tuple[int, int, int], num_stages: int, scale_factor: float
+) -> Sequence[Tuple[int, int, int]]:
+    """Stagewise coarse-to-fine grid resolutions, smallest first."""
+    x, y, z = final_required_resolution
+    grid_sizes = [(x, y, z)]
+    for _ in range(num_stages - 1):
+        x = int(np.ceil((1 / scale_factor) * x))
+        y = int(np.ceil((1 / scale_factor) * y))
+        z = int(np.ceil((1 / scale_factor) * z))
+        grid_sizes.insert(0, (x, y, z))
+    return grid_sizes
 
 
 def compute_expected_density_scale_for_relu_field_grid(
@@ -17,3 +31,11 @@ def compute_expected_density_scale_for_relu_field_grid(
     return ((constant_grid_norm * percent_density_scale) / diagonal_norm) / (
         NUM_COORD_DIMENSIONS
     )
+
+
+def log_config_to_disk(config: Dict, output_dir: Path, name: str = "config") -> None:
+    """Write the run configuration as `key: repr(value)` lines."""
+    output_dir.mkdir(parents=True, exist_ok=True)
+    with open(output_dir / f"{name}.yml", "w") as f:
+        for key in sorted(config):
+            f.write(f"{key}: {config[key]!r}\n")
