@@ -70,9 +70,16 @@ H100_BYTES_PER_S = 3.35e12
 # 2e-2 is ~2.5-5 ulps at max|ref|; a wrong rescale or sum is O(1) relative.
 FLASH_REL_TOL = 2e-2
 MAIN_SHAPE = (2, 4096, 5, 64)  # SD 2.x 64x64 level, CFG batch 2
-# (shape, q scale): the main shape, a ragged d=128 shape, and peaked scores
-# (std 4) so the running max moves between key tiles and the rescale matters
-CHECKS = ((MAIN_SHAPE, 1.0), ((1, 2500, 2, 128), 1.0), ((1, 1000, 3, 64), 4.0))
+LEVEL32_SHAPE = (2, 1024, 10, 64)  # the 32x32 level, below the gate (timed only)
+D128_SHAPE = (2, 4096, 5, 128)  # d = 128 at the main length (timed only; no SD 2.x level has it)
+# (q shape, key length or None for Lq, q scale): the main shape; a ragged
+# d=128 shape; peaked scores (std 4) so the running max moves between key
+# tiles and the rescale matters; B = 2 with a ragged length, which catches a
+# tile that reads across batches; Lq != Lk; d = 128 at the main length
+CHECKS = (
+    (MAIN_SHAPE, None, 1.0), ((1, 2500, 2, 128), None, 1.0), ((1, 1000, 3, 64), None, 4.0),
+    ((2, 1000, 3, 64), None, 1.0), (MAIN_SHAPE, 1000, 1.0), (D128_SHAPE, None, 1.0),
+)
 STEPS_PER_CALL, TIMED_CALLS = 3, 8
 GRID_RES, BASE, SD_VERSION = 160, lane_aligned_res(400), "2.0"
 # The compositing kernel is held at max|w - w_ref| and max|acc - acc_ref| <=
@@ -112,40 +119,55 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def flash_bound_ms(shape) -> tuple:
+    """(bound ms, what bounds it): 4*B*h*L*L*d flops at the bf16 peak against
+    q, k, v read and o written once at the memory rate."""
+    B, L, Hh, D = shape
+    t_ops = 4.0 * B * Hh * L * L * D / H100_BF16_FLOPS * 1e3
+    t_bytes = 4.0 * B * L * Hh * D * 2 / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_flash_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = []
-    for shape, q_scale in CHECKS:
-        q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(3))
-        q = q * q_scale
+    for shape, lk, q_scale in CHECKS:
+        kv_shape = shape if lk is None else (shape[0], lk, *shape[2:])
+        q = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) * q_scale
+        k, v = (torch.randn(kv_shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
         out = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = fa.flash_attention_reference(q, k, v).float()
         err = float((out.float() - ref).abs().max())
         rel = err / float(ref.abs().max())
-        log("kernel-check", kernel="flash_attn_fwd", shape=list(shape), q_scale=q_scale,
+        log("kernel-check", kernel="flash_attn_fwd", shape=list(shape), lk=kv_shape[1], q_scale=q_scale,
             max_abs_err=err, max_abs_ref=float(ref.abs().max()), rel_err=rel, rel_tol=FLASH_REL_TOL)
         if not rel < FLASH_REL_TOL:
             raise AssertionError(f"flash_attn_fwd disagrees with its plain version: {rel}")
         errs.append(err)
-    B, L, Hh, D = MAIN_SHAPE
-    q, k, v = (torch.randn(MAIN_SHAPE, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(3))
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v))
-    plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-    flops = 4.0 * B * Hh * L * L * D
-    nbytes = 4.0 * B * L * Hh * D * 2
-    t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    row = dict(
+    times = {}
+    for shape in (MAIN_SHAPE, LEVEL32_SHAPE, D128_SHAPE):
+        B, L, Hh, D = shape
+        q, k, v = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        bound, bound_by = flash_bound_ms(shape)
+        times[shape] = (ms, plain_ms, library_ms, bound, bound_by)
+        log("kernel-time", kernel="flash_attn_fwd", shape=list(shape), ms=ms, plain_ms=plain_ms,
+            sdpa_ms=library_ms, bound_ms=bound, share_of_bound=bound / ms,
+            tflops=4.0 * B * Hh * L * L * D / ms / 1e9, tiles=-(-L // 128) * Hh * B,
+            waves=-(-L // 128) * Hh * B / torch.cuda.get_device_properties(0).multi_processor_count)
+    q = torch.randn(MAIN_SHAPE, device=dev, dtype=torch.bfloat16)
+    log("kernel-host", kernel="flash_attn_fwd", what="TMA descriptor encoding per call (4 maps)",
+        us=fa.encode_us(q, q, q, torch.empty_like(q)))
+    ms, plain_ms, library_ms, bound, bound_by = times[MAIN_SHAPE]
+    return dict(
         name="flash_attn_fwd", route="cuda", source="voxe_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="voxe_tpu/models/sd/unet.py:163", launches=0, max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=library_ms,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
     )
-    log("kernel-time", kernel="flash_attn_fwd", shape=list(MAIN_SHAPE), ms=ms, plain_ms=plain_ms,
-        sdpa_ms=library_ms, bound_ms=row["bound_ms"], tflops=flops / ms / 1e9)
-    return row
 
 
 def composite_inputs(g, n, s, sigma_max, dev):
@@ -334,10 +356,12 @@ def profile_call(fn, steps: int, ms_step: float) -> None:
         log("profile", device_time="not measured (profiler saw no device time)")
         return
     top = sorted(kernels, key=lambda k: -k[1])[:10]
+    ours = {n: sum(t for key, t, _ in kernels if n in key) / steps for n in ("flash_fwd_kernel", "composite_fwd_kernel")}
     log("profile", steps=steps, wall_ms_per_step=wall_ms / steps, device_busy_ms_per_step=busy_ms / steps,
         idle_share_profiled=1.0 - busy_ms / wall_ms,
         idle_share_vs_unprofiled_step=1.0 - busy_ms / steps / ms_step,
-        kernel_launches_per_step=sum(k[2] for k in kernels) / steps)
+        kernel_launches_per_step=sum(k[2] for k in kernels) / steps,
+        flash_ms_per_step=ours["flash_fwd_kernel"], composite_ms_per_step=ours["composite_fwd_kernel"])
     print("[profile-top] " + json.dumps(
         [{"kernel": k[:90], "ms_per_step": t / steps, "calls_per_step": c / steps} for k, t, c in top]
     ), flush=True)

@@ -59,12 +59,24 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "shape,q_scale",
-    [((2, 4096, 5, 64), 1.0), ((1, 2500, 2, 128), 1.0), ((1, 100, 3, 64), 1.0), ((1, 1000, 3, 64), 4.0)],
+    "shape,lk,q_scale",
+    [
+        ((2, 4096, 5, 64), None, 1.0),  # the UNet's 64x64 level (CFG batch 2)
+        ((1, 2500, 2, 128), None, 1.0),
+        ((1, 100, 3, 64), None, 1.0),
+        ((1, 1000, 3, 64), None, 4.0),
+        ((2, 1000, 3, 64), None, 1.0),  # B = 2, ragged: a tile must not read the next batch
+        ((2, 4096, 5, 64), 1000, 1.0),  # Lq != Lk, ragged keys
+        ((1, 100, 2, 64), 4096, 1.0),  # few queries, many keys
+        ((1, 130, 2, 64), 1, 1.0),  # one key: out = v
+        ((2, 4096, 5, 128), None, 1.0),  # d = 128 at the main length
+    ],
 )
-def test_flash_kernel_matches_plain_on_card(cuda_device, shape, q_scale):
+def test_flash_kernel_matches_plain_on_card(cuda_device, shape, lk, q_scale):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(shape, generator=g, device=cuda_device, dtype=torch.bfloat16) for _ in range(3))
+    kv_shape = shape if lk is None else (shape[0], lk, *shape[2:])
+    q = torch.randn(shape, generator=g, device=cuda_device, dtype=torch.bfloat16)
+    k, v = (torch.randn(kv_shape, generator=g, device=cuda_device, dtype=torch.bfloat16) for _ in range(2))
     q = q * q_scale  # 4.0: peaked scores, so the running max moves between key tiles
     before = fa.LAUNCHES
     out = fa.flash_attention(q, k, v)
@@ -86,3 +98,10 @@ def test_flash_kernel_rejects_unsupported_inputs(cuda_device):
     q = torch.randn(1, 64, 2, 64, device=cuda_device)
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q)  # f32
+    q = torch.randn(1, 64, 2, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q, scale=-0.125)  # the kernel's running max needs scale > 0
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :, :1], q)  # k's heads differ from q's
+    assert fa.LAUNCHES == before

@@ -86,10 +86,20 @@ def test_group_norm_matches_reduce_first(shape, groups, eps):
     np.testing.assert_allclose(out, np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 2, 64), (1, 48, 3, 128)])
-def test_flash_reference_matches_jax_sdpa(shape):
+@pytest.mark.parametrize(
+    "shape,lk",
+    [
+        ((2, 64, 2, 64), None),
+        ((1, 48, 3, 128), None),
+        ((2, 37, 3, 64), None),  # B = 2 with a ragged length, as on the card
+        ((2, 40, 2, 64), 131),  # Lq != Lk
+    ],
+)
+def test_flash_reference_matches_jax_sdpa(shape, lk):
     rng = np.random.default_rng(1)
-    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    kv_shape = shape if lk is None else (shape[0], lk, *shape[2:])
+    q = rng.standard_normal(shape).astype(np.float32)
+    k, v = (rng.standard_normal(kv_shape).astype(np.float32) for _ in range(2))
     ref = jax.nn.dot_product_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     # the wrapper on a CPU tensor is the plain version (and counts nothing)

@@ -60,8 +60,12 @@ class CudaLibrary:
         """The exported C function (builds and loads on first call)."""
         with self._lock:
             if self._fn is None:
-                fn = getattr(ctypes.CDLL(str(self.build())), self.symbol)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
+                self._fn = self.symbol_function(self.symbol, self.argtypes, ctypes.c_int)
         return self._fn
+
+    def symbol_function(self, symbol: str, argtypes: Sequence, restype):
+        """Another C function the same library exports (builds on first use)."""
+        fn = getattr(ctypes.CDLL(str(self.build())), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        return fn

@@ -7,7 +7,9 @@ Replaces the Pallas TPU kernel that voxe_tpu's UNet self-attention calls
 only): non-causal, unmasked softmax(Q K^T * d^-1/2) V without forming the
 [B, h, Q, K] scores. The CUDA source is `voxe_tpu_torch/csrc/flash_attn_fwd.cu`;
 it is compiled with nvcc for sm_90a into a shared library with a plain C
-interface at first use and loaded with ctypes.
+interface at first use and loaded with ctypes. The kernel loads and stores
+through TMA descriptors that the C entry point encodes on every call
+(`encode_us` measures that host cost).
 
 Layout is [B, Q, h, d] (the UNet's own layout before a head transpose), bf16
 in and out, d in {64, 128}. A CPU tensor goes to `flash_attention_reference`;
@@ -42,6 +44,19 @@ def build(verbose: bool = False):
     """Compile the kernel (once per source content) and return the library
     path. `verbose` prints ptxas' report when a build happens."""
     return _LIB.build(verbose)
+
+
+def encode_us(q, k, v, out, iters: int = 1000) -> float:
+    """Host microseconds to encode one call's four TMA descriptors (the
+    average of `iters`; nothing is launched). CUDA tensors as for the kernel."""
+    fn = _LIB.symbol_function(
+        "voxe_flash_attn_encode_us", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6, ctypes.c_double
+    )
+    B, Lq, H, D = q.shape
+    us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Lq, k.shape[1], D, iters)
+    if us < 0:
+        raise RuntimeError("flash_attn_fwd: could not encode the TMA descriptors")
+    return us
 
 
 def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -82,6 +97,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     Lk = k.shape[1]
     if Lq == 0 or Lk == 0:
         raise ValueError("flash_attention: empty sequence")
+    if not scale > 0.0:
+        raise ValueError(f"flash_attention: the kernel takes a positive scale, got {scale}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _LIB.function()(
