@@ -23,13 +23,26 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      400^2 image);
   7. the recon stage ladder end to end through its CLI module (4 stages, a few
      iterations each), ending in a model_final.pth that loads back;
-  8. the `kernels` JSON line, the card line, and the final JSON line.
+  8. sd-weights: SD 2.0 at its published widths with seeded random weights,
+     written as an HF snapshot (safetensors: UNet and VAE in bf16, CLIP in
+     f32, a byte-level BPE vocab) and loaded back through
+     `StableDiffusion(weights_dir=)`: CLIP, VAE and UNet outputs bitwise equal
+     to the source's, the BPE tokenizer in use;
+  9. edit-cli: the edit CLI module end to end on the recon CLI's
+     model_final.pth (160^3, fused compositing) and the 400^2 scene, with
+     the snapshot's weights: 6 SDS steps on the 384^2 base, feedback renders
+     and checkpoints; 5 flash launches a step, compositing launches on every
+     step and feedback render, the training time per step, peak memory;
+ 10. edit-data-pose: the same CLI in dataset-pose mode, 2 steps;
+ 11. the `kernels` JSON line, the card line, and the final JSON line.
 Imports nothing from JAX or the JAX package.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
+import struct
 import subprocess
 import sys
 import tempfile
@@ -43,9 +56,12 @@ import torch.nn.functional as F
 
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
+from voxe_tpu_torch.cli import edit_pretrained_relu_field as edit_cli
 from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
+from voxe_tpu_torch.models.sd import weights as sd_weights
+from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
 from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
@@ -186,13 +202,19 @@ def composite_bound_ms(n: int, s: int) -> float:
 
 def phase_composite_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
-    # recon main path: 160 slices of a 768^2 base, slab-padded to 256 as
-    # accumulate pads them; held-out render chunk; ragged; dense (T
-    # underflows to 0 within the first ~130 of 512 samples)
-    dens, depths, dirn = composite_inputs(g, RECON_BASE * RECON_BASE, GRID_RES, 5.0, dev)
-    recon_shape = _pad_samples(dens, depths, "slab")[:2] + (dirn,)
+    # every shape a driven path launches at: 160 slices slab-padded to 256
+    # as accumulate pads them, on the recon step's 768^2 base, the edit
+    # step's 384^2 base and the edit CLI's 800^2 feedback base (2x the 400^2
+    # screen); the held-out render chunk; ragged; dense (T underflows to 0
+    # within the first ~130 of 512 samples)
+    def slab_padded(n):
+        dens, depths, dirn = composite_inputs(g, n, GRID_RES, 5.0, dev)
+        return _pad_samples(dens, depths, "slab")[:2] + (dirn,)
+
     cases = {
-        "recon_step_slab_padded": recon_shape,
+        "recon_step_slab_padded": slab_padded(RECON_BASE * RECON_BASE),
+        "edit_step_slab_padded": slab_padded(BASE * BASE),
+        "edit_feedback_slab_padded": slab_padded((2 * SCENE) ** 2),
         "heldout_chunk": composite_inputs(g, 32768, 1024, 5.0, dev),
         "ragged": composite_inputs(g, 1000, 37, 5.0, dev),
         "dense_underflow": composite_inputs(g, 2048, 512, 50.0, dev),
@@ -282,8 +304,9 @@ def phase_small_check(dev) -> None:
     torch.backends.cudnn.allow_tf32 = True  # the library default, back for the main path
 
 
-def phase_main(dev) -> int:
-    """The edit main path at full width; returns its flash launches."""
+def phase_main(dev) -> tuple:
+    """The edit main path at full width; returns its (flash, compositing)
+    launches."""
     t0 = time.perf_counter()
     sd = StableDiffusion(SD_VERSION, init_mode="random", seed=0, device=dev)
     text_by_dir = torch.stack([sd.get_text_embeds(f"a dog made of yarn, {d} view") for d in DIRECTION_PROMPTS])
@@ -326,7 +349,7 @@ def phase_main(dev) -> int:
         raise AssertionError(f"main path: losses {losses}, grid change {moved}")
     breakdown(sd, grid, text_by_dir[3], ref_d)
     profile_call(lambda: multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen), STEPS_PER_CALL, ms_step)
-    return launches
+    return launches, composite_launches
 
 
 def reset_counts() -> None:
@@ -560,6 +583,150 @@ def phase_recon_cli(workdir: Path) -> None:
         raise AssertionError("recon CLI: model_final.pth does not hold a finite 160^3 grid")
 
 
+SAFETENSORS_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16"}
+
+
+def write_safetensors(tensors: dict, path: Path) -> None:
+    """An 8-byte header length, the JSON header (8-byte aligned), raw bytes."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        # flat first: a channels_last [O, I, 1, 1] weight counts as contiguous
+        blob = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": SAFETENSORS_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def write_hf_snapshot(sd: StableDiffusion, root: Path) -> None:
+    """The port's weights under their HF names (the loader's map, first
+    candidate), with SD 2.x's linear proj_in / proj_out, and a byte-level
+    BPE vocab that pads with "!" as SD 2.x does."""
+    for name, sub in sd_weights.HF_SUBFOLDERS.items():
+        module = getattr(sd, name)
+        names = sd_weights.hf_names(module, sd_weights.NAME_FNS[name])
+        tensors = {}
+        for key, t in module.state_dict().items():
+            hf = names[key][0][0]
+            tensors[hf] = t[:, :, 0, 0] if (".proj_in." in hf or ".proj_out." in hf) and t.dim() == 4 else t
+        write_safetensors(tensors, root / sub / "model.safetensors")
+    byte_tokens = list(_bytes_to_unicode().values())
+    vocab = {tok: i for i, tok in enumerate(byte_tokens + [t + "</w>" for t in byte_tokens])}
+    vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    (root / "tokenizer").mkdir(parents=True)
+    (root / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
+    (root / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+    (root / "tokenizer" / "special_tokens_map.json").write_text(json.dumps({"pad_token": "!"}))
+
+
+def phase_sd_weights(dev, workdir: Path) -> Path:
+    """SD 2.0 at published widths through the HF snapshot loader; returns
+    the snapshot directory."""
+    src = StableDiffusion(SD_VERSION, init_mode="random", seed=5, device=dev)
+    root = workdir / "sd2_snapshot"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    write_hf_snapshot(src, root)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = StableDiffusion(SD_VERSION, weights_dir=root, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(6)
+    ids = torch.randint(0, 514, (2, 77), generator=g, device=dev)
+    img = torch.rand((1, 3, src.config.image_size, src.config.image_size), generator=g, device=dev)
+    lat = torch.randn(src.latent_shape(2), generator=g, device=dev)
+    before = fa.LAUNCHES
+    with torch.no_grad():
+        text = src.clip(ids)
+        pairs = {
+            "clip": (text, loaded.clip(ids)),
+            "vae_encode": (src.encode_imgs(img), loaded.encode_imgs(img)),
+            "unet": (src.unet_noise_pred(lat, 500, text), loaded.unet_noise_pred(lat, 500, text)),
+        }
+    torch.cuda.synchronize()
+    equal = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
+    size_gb = sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9
+    log("sd-weights", sd=SD_VERSION, snapshot_gb=size_gb, write_s=write_s, load_s=load_s, bitwise_equal=equal,
+        tokenizer=type(loaded.tokenizer).__name__, pad_id=loaded.tokenizer.pad_token_id,
+        unet_flash_launches=fa.LAUNCHES - before)
+    if not all(equal.values()) or not isinstance(loaded.tokenizer, CLIPTokenizer):
+        raise AssertionError(f"the loaded SD 2.0 differs from its source: {equal}")
+    del src, loaded, pairs
+    torch.cuda.empty_cache()
+    return root
+
+
+class LogRecords(logging.Handler):
+    """Keeps the port's log records (the editing loop logs its training time)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) -> tuple:
+    """The edit CLI module end to end; returns its (flash, compositing)
+    launches."""
+    name = "edit-data-pose" if data_pose else "edit-cli"
+    steps, feedback_every = (2, 3) if data_pose else (6, 3)
+    out = workdir / name
+    ref = workdir / "cli_out" / "saved_models" / "model_final.pth"
+    args = [
+        "-i", str(ref), "-o", str(out), "-p", "a dog wearing a party hat", "-d", str(workdir / "scene"),
+        "--data_downsample_factor", "1", "--sd_weights_dir", str(snapshot), "--sd_version", SD_VERSION,
+        "--num_iterations_edit", str(steps), "--feedback_frequency", str(feedback_every),
+        "--save_frequency", str(feedback_every), "--fast_debug_mode", "False", "--device", str(dev),
+    ] + (["--data_pose_mode", "True"] if data_pose else [])
+    records = LogRecords()
+    port_log = logging.getLogger("voxe_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    port_log.addHandler(records)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of this path's run
+    try:
+        edit_cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        port_log.removeHandler(records)
+    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    seconds = time.perf_counter() - t0
+    time_training = next(r.time_training for r in records.records if hasattr(r, "time_training"))
+    model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device=dev)
+    before, _ = load_volumetric_model(ref, device=dev)
+    dens = model.grid.densities
+    change = float((dens - before.grid.densities).abs().max())
+    feedback_steps = sorted({1, steps} | set(range(feedback_every, steps + 1, feedback_every)))
+    pngs = [out / "training_logs" / "rendered_output" / f"sds_{kind}iter_{i}.png"
+            for i in feedback_steps for kind in ("", "diffuse_")]
+    log(name, steps=steps, ms_per_step=time_training / steps * 1e3,
+        ms_per_step_note="time_training / steps; the first step's warm-up included", time_training_s=time_training,
+        phase_s=seconds, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=flash,
+        composite_launches=composite, feedback_renders=len(pngs), grid=list(model.grid.grid_dims),
+        grid_max_change=change, pngs_written=sum(p.exists() for p in pngs))
+    if flash != 5 * steps:
+        raise AssertionError(f"{name}: flash kernel launched {flash} times in {steps} steps, want 5 per step")
+    if composite < steps + len(pngs):  # one a step, one per feedback render
+        raise AssertionError(f"{name}: compositing kernel launched {composite} times")
+    if model.grid.grid_dims != before.grid.grid_dims or not torch.isfinite(dens).all() or not change > 0.0:
+        raise AssertionError(f"{name}: model_final.pth holds no finite, edited grid of the input's size")
+    if not all(p.exists() for p in pngs):
+        raise AssertionError(f"{name}: feedback PNGs missing")
+    return flash, composite
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     libs = {"flash_attn_fwd": fa.build, "composite_fwd": comp.build}
@@ -585,10 +752,19 @@ def main() -> int:
     comp_row = phase_composite_kernel(dev)
     phase_small_check(dev)
     phase_small_check_recon(dev)
-    flash_row["launches"] = phase_main(dev)
+    flash, composite = phase_main(dev)
+    flash_row["launches"] = flash
+    by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
         comp_row["launches"] = phase_recon_main(dev, Path(tmp))
+        by_path["recon"] = {"flash_attn_fwd": 0, "composite_fwd": comp_row["launches"]}
         phase_recon_cli(Path(tmp))
+        snapshot = phase_sd_weights(dev, Path(tmp))
+        for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
+            flash, composite = phase_edit_cli(dev, Path(tmp), snapshot, data_pose)
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+    for row in (flash_row, comp_row):
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
     print(json.dumps({"kernels": [flash_row, comp_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

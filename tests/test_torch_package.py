@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of voxe_tpu_torch (nor
-chip_smoke.py) imports jax, flax, optax or voxe_tpu. Plus the flash kernel's
-wrapper contract, and the kernel held against its plain version on the card
-(marked `cuda`: skipped without one)."""
+chip_smoke.py) imports jax, flax, optax, safetensors or voxe_tpu (the card
+has no safetensors package: the port reads the format itself). Plus the
+flash kernel's wrapper contract, and the kernel held against its plain
+version on the card (marked `cuda`: skipped without one)."""
 import os
 import pkgutil
 import subprocess
@@ -31,7 +32,7 @@ def test_port_imports_no_jax_or_reference_package():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'voxe_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu'))\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

@@ -8,12 +8,18 @@ thre3d_atom/thre3d_reprs/sd.py:20-385).
   the latents.
 * UNet and VAE run in bf16 by default; latents and the SDS arithmetic stay
   f32. The UNet runs under `torch.no_grad()` (the JAX stop_gradient).
-* Weights are seeded random ("random") or zeros ("zeros"); real
-  checkpoints are not loaded by this slice. `load_flax_params` carries a
-  JAX parameter tree across.
+* Weights come from a local HF snapshot (`weights_dir`, read by
+  `weights.load_sd_params`, with the BPE `CLIPTokenizer` from its
+  `tokenizer/`), or are seeded random ("random") or zeros ("zeros") with the
+  `HashTokenizer`. `load_flax_params` carries a JAX parameter tree across.
+* The max-timestep annealing (`update_t_schedule`) is host state; t is
+  drawn in [min_step, max_step] from a `torch.Generator`.
+* `scoreDistillationLoss` holds the four "<prompt>, {side, overhead, back,
+  front} view" encodings (or the bare prompt's).
 """
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -25,10 +31,11 @@ from voxe_tpu_torch.models.sd.clip_text import CLIPTextModel
 from voxe_tpu_torch.models.sd.config import SD_VERSIONS, SDConfig, tiny_test_config
 from voxe_tpu_torch.models.sd.norms import GroupNorm
 from voxe_tpu_torch.models.sd.scheduler import DDIMScheduler
-from voxe_tpu_torch.models.sd.tokenizer import HashTokenizer
+from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
-from voxe_tpu_torch.models.sd.weights import from_flax_params
+from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
+from voxe_tpu_torch.utils.logging import log
 
 DIRECTION_PROMPTS = ("side", "overhead", "back", "front")
 
@@ -73,6 +80,10 @@ class StableDiffusion:
         self,
         sd_version: str = "2.1",
         config: Optional[SDConfig] = None,
+        weights_dir: Optional[Path] = None,
+        t_sched_start: int = 1500,
+        t_sched_freq: int = 500,
+        t_sched_gamma: float = 1.0,
         seed: int = 0,
         unet_dtype=torch.bfloat16,
         vae_dtype=None,
@@ -82,6 +93,12 @@ class StableDiffusion:
         if config is None:
             config = tiny_test_config() if sd_version == "tiny" else SD_VERSIONS[sd_version]
         self.config = config
+        self.t_sched_start = t_sched_start
+        self.t_sched_freq = t_sched_freq
+        self.t_sched_gamma = t_sched_gamma
+        self.num_train_timesteps = config.num_train_timesteps
+        self.min_step_ratio = 0.02
+        self.max_step_ratio = 0.98
         self.device = torch.device(device)
         self.unet_dtype = unet_dtype
         self.vae_dtype = unet_dtype if vae_dtype is None else vae_dtype
@@ -95,7 +112,12 @@ class StableDiffusion:
             self.clip = CLIPTextModel(config.clip)
             self.vae = AutoencoderKL(config.vae)
             self.unet = UNet2DConditionModel(config.unet)
-        if init_mode == "random":
+        if weights_dir is not None:
+            params = load_sd_params(Path(weights_dir), config)
+            for name, state in params.items():
+                getattr(self, name).load_state_dict(state, strict=True)
+            self.tokenizer = CLIPTokenizer(Path(weights_dir) / "tokenizer")
+        elif init_mode == "random":
             gen = torch.Generator(device=self.device).manual_seed(seed)
             for m in (self.clip, self.vae, self.unet):
                 _random_init_(m, gen)
@@ -124,6 +146,30 @@ class StableDiffusion:
             getattr(self, name).load_state_dict(from_flax_params(params[name]), strict=True)
         self._place()
         self._text_embed_cache.clear()
+
+    # ------------------------------------------------------------------
+    # host-side t schedule
+    # ------------------------------------------------------------------
+    def update_t_schedule(self, global_step: int) -> None:
+        """Anneal max_step_ratio by gamma every t_sched_freq steps from
+        t_sched_start, floored at 0.22."""
+        if global_step >= self.t_sched_start and global_step % self.t_sched_freq == 0:
+            self.max_step_ratio = max(self.max_step_ratio * self.t_sched_gamma, 0.22)
+
+    def get_max_step_ratio(self) -> float:
+        return self.max_step_ratio
+
+    def t_bounds(self):
+        """(min_step, max_step) of the current schedule, inclusive."""
+        return (
+            int(self.num_train_timesteps * self.min_step_ratio),
+            int(self.num_train_timesteps * self.max_step_ratio),
+        )
+
+    def sample_timestep(self, generator: torch.Generator) -> int:
+        """t ~ U{min_step, ..., max_step} with the current annealed bounds."""
+        lo, hi = self.t_bounds()
+        return int(torch.randint(lo, hi + 1, (), generator=generator, device=generator.device))
 
     @torch.no_grad()
     def get_text_embeds(self, prompt, negative_prompt="") -> torch.Tensor:
@@ -206,3 +252,46 @@ class StableDiffusion:
         w = 1.0 - self.alphas[t]
         grad = torch.nan_to_num(w * (noise_pred - noise))
         return specify_gradient(latents, grad)
+
+
+class scoreDistillationLoss:
+    """Directional SDS text conditioning (reference sd.py:333-385): the four
+    "<prompt>, {side,overhead,back,front} view" embeddings, or the bare
+    prompt's when not directional."""
+
+    def __init__(
+        self,
+        prompt: str,
+        sd_model: Optional[StableDiffusion] = None,
+        t_sched_start: int = 1500,
+        t_sched_freq: int = 500,
+        t_sched_gamma: float = 1.0,
+        directional: bool = True,
+        sd_version: str = "2.0",
+        weights_dir: Optional[Path] = None,
+        config: Optional[SDConfig] = None,
+        device="cuda",
+    ):
+        self.directional = directional
+        self.sd_model = sd_model or StableDiffusion(
+            sd_version, config=config, weights_dir=weights_dir, t_sched_start=t_sched_start,
+            t_sched_freq=t_sched_freq, t_sched_gamma=t_sched_gamma, device=device,
+        )
+        if directional:
+            self.text_encodings = {}
+            for dir_prompt in DIRECTION_PROMPTS:
+                log.info(f"encoding text for '{dir_prompt}' direction")
+                self.text_encodings[dir_prompt] = self.sd_model.get_text_embeds(prompt + f", {dir_prompt} view", "")
+        else:
+            self.text_encoding = self.sd_model.get_text_embeds(prompt, "")
+
+    def encoding_for_direction(self, direction: Optional[str]) -> torch.Tensor:
+        if self.directional:
+            if direction is None:
+                raise ValueError("must supply direction in directional SDS mode")
+            return self.text_encodings[direction]
+        return self.text_encoding
+
+    def stacked_encodings(self) -> torch.Tensor:
+        """[4, 2, 77, D] in DIRECTION_PROMPTS order (the multi-step's table)."""
+        return torch.stack([self.text_encodings[d] for d in DIRECTION_PROMPTS])

@@ -8,9 +8,12 @@ info), so a grid saved by either package loads in the other.
 
 The full-image render is the exact renderer in a Python loop over fixed
 chunks of `parallel_rays_chunk_size` rays, the last chunk padded with
-zero rays (as the JAX `lax.map` does), under `torch.no_grad()`.
-Not ported yet: the shear-warp screen render and the camera-path renders,
-and the attention-channel renders.
+zero rays (as the JAX `lax.map` does), under `torch.no_grad()`; with
+`use_shear_warp=True` it is the shear-warp screen render instead, except for
+a camera inside the grid's AABB along its marching axis, which the
+factorization cannot render: that pose goes to the exact renderer, with a
+warning, as in the JAX package. Not ported yet: the camera-path renders and
+the attention-channel renders.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from voxe_tpu_torch.render.accumulate import RenderOut
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_sh_voxel_grid
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose
+from voxe_tpu_torch.utils.logging import log
 
 FORMAT = "voxe_tpu.volumetric_model.v1"
 EXTRA_INFO = "extra_info"
@@ -65,9 +69,28 @@ class VolumetricModel:
     ) -> RenderOut:
         """Full image with the exact renderer: no jitter, AABB-bounded
         sampling and `render_num_samples_per_ray` samples unless overridden.
-        Returns RenderOut with [H, W, C] leaves on the grid's device."""
-        if config_overrides.pop("use_shear_warp", False):
-            raise NotImplementedError("use_shear_warp: the shear-warp screen render is not ported yet")
+        `use_shear_warp=True` takes the shear-warp screen render instead
+        (`shear_warp_base_res` overrides its square base side, by default
+        twice the screen's long side). Returns RenderOut with [H, W, C]
+        leaves on the grid's device."""
+        use_shear_warp = config_overrides.pop("use_shear_warp", False)
+        shear_warp_base_res = config_overrides.pop("shear_warp_base_res", None)
+        if use_shear_warp:
+            from voxe_tpu_torch.render.shearwarp import render_shear_warp_to_screen, shear_warp_supports_pose
+
+            if shear_warp_supports_pose(self.grid, pose):
+                # sampling options do not apply: the quadrature is the grid's own slices
+                cfg = self.render_config.replace(
+                    perturb_sampled_points=False, stochastic_density_noise_std=0.0,
+                    **{k: v for k, v in config_overrides.items()
+                       if k not in ("optimized_sampling", "num_samples_per_ray")},
+                )
+                base_hw = (int(shear_warp_base_res),) * 2 if shear_warp_base_res else None
+                return render_shear_warp_to_screen(self.grid, pose, camera_intrinsics, cfg, base_hw=base_hw)
+            log.warning(
+                "shear-warp render: camera is inside the grid AABB along its marching axis — "
+                "rendering this pose with the exact renderer"
+            )
         cfg = self.render_config.replace(
             perturb_sampled_points=False,
             optimized_sampling=config_overrides.pop("optimized_sampling", True),

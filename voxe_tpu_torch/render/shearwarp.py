@@ -24,8 +24,14 @@ with `.flip(0)`, as the JAX static branches do. Gradients reach the grid
 through matmuls only. Host-side helpers: the pose guards, the base-window
 geometry, `screen_to_base` and the target warp `warp_image_to_base`.
 
-Not ported yet: density noise (raises), the attention/diffuse-only render
-modes of the refinement stage, and the screen-space render.
+`diffuse_only` shades the colour as the degree-0 (diffuse) version, and
+`background_value` is what an empty ray composites onto with white_bkgd.
+`render_shear_warp_to_screen` finishes the factorization for screen-space
+output: the base composite, then a bilinear gather at each screen pixel's
+base coordinates (`sample_base_image`).
+
+Not ported yet: density noise (raises) and the attention render modes of
+the refinement stage.
 """
 from __future__ import annotations
 
@@ -112,12 +118,15 @@ def _streamed_composite(
     white_bkgd: bool,
     flip_k: bool,
     with_diffuse: bool = False,
+    background_value: float = 1.0,
+    diffuse_only: bool = False,
 ) -> RenderOut:
     """Slice-streamed resample + composite; every per-sample tensor is
     slice-major ([S, N] / [S, U, V, C]). With `flip_k` the s axis runs in
     volume order while marching runs s descending: the triangular matrix and
     the deltas flip instead of the volume. `with_diffuse` also composites the
-    degree-0 (diffuse) shading into extra["diffuse_colour"]."""
+    degree-0 (diffuse) shading into extra["diffuse_colour"]; `diffuse_only`
+    shades the colour itself at degree 0."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -165,7 +174,8 @@ def _streamed_composite(
         tmp = torch.bmm(Wa_b, vol_b.reshape(Sb, A, B * Cf)).reshape(Sb, U, B, Cf)
         res = torch.einsum("svb,subc->suvc", Wb_b, tmp)  # [Sb, U, V, Cf]
         feats = f_post(res).reshape(Sb, N, num_channels, n_coeffs)
-        raw_rad = evaluate_spherical_harmonics(sh_degree, feats, dirs_b)  # [Sb, N, C]
+        degree, coeffs = (0, feats[..., :1]) if diffuse_only else (sh_degree, feats)
+        raw_rad = evaluate_spherical_harmonics(degree, coeffs, dirs_b)  # [Sb, N, C]
         out = composite(w_b, raw_rad, in_b)
         if not with_diffuse:
             return out, out.new_zeros(())
@@ -187,8 +197,9 @@ def _streamed_composite(
         colour_render = colour_render + c_b
         diffuse_render = diffuse_render + d_b
     if white_bkgd:
-        colour_render = colour_render + (1.0 - acc_render)
-        diffuse_render = diffuse_render + (1.0 - acc_render)
+        bg = (1.0 - acc_render) * background_value
+        colour_render = colour_render + bg
+        diffuse_render = diffuse_render + bg
 
     depth_render = torch.sum(t_sn * weights, dim=0).reshape(N, 1)
     extra = {
@@ -211,6 +222,8 @@ def _monolithic_composite(
     config,
     grid_config,
     with_diffuse: bool,
+    background_value: float = 1.0,
+    diffuse_only: bool = False,
 ) -> RenderOut:
     """Resample every slice onto the base lattice ([U*V, S, C+1]), shade,
     and composite with accumulate(final_delta="slab"), through the fused
@@ -230,6 +243,8 @@ def _monolithic_composite(
     num_channels = NUM_COLOUR_CHANNELS if C1 > 2 else 1
     sh_coeffs = feats.reshape(N, S, num_channels, -1)
     sh_degree = int(math.isqrt(sh_coeffs.shape[-1])) - 1
+    if diffuse_only:  # shade the colour as the degree-0 diffuse version
+        sh_degree, sh_coeffs = 0, sh_coeffs[..., :1]
     rays_c = Rays(origins=eye_w.expand(N, 3), directions=dirs)
 
     def tail(degree, coeffs):
@@ -239,7 +254,7 @@ def _monolithic_composite(
         )
         return accumulate_radiance_density_on_rays(
             (raw_radiance, dens), t_slices, rays_c,
-            white_bkgd=config.white_bkgd, background_value=1.0,
+            white_bkgd=config.white_bkgd, background_value=background_value,
             final_delta="slab", use_fused_kernel=getattr(config, "use_fused_kernel", False),
         )
 
@@ -262,6 +277,8 @@ def _render_canonical(
     flip_k: bool,
     with_diffuse: bool = False,
     stream_composite: bool = True,
+    background_value: float = 1.0,
+    diffuse_only: bool = False,
 ):
     """Core shear-warp in canonical orientation. Returns (RenderOut over
     [U*V] base pixels, dirs, lo, hi)."""
@@ -319,13 +336,14 @@ def _render_canonical(
         t_sn = tau_o[:, None] * v_norm[None, :]
         out = _streamed_composite(
             vol, Wa, Wb, t_sn, dirs, inside_sn, grid_config, config.white_bkgd, flip_k,
-            with_diffuse=with_diffuse,
+            with_diffuse=with_diffuse, background_value=background_value, diffuse_only=diffuse_only,
         )
     else:
         inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S)
         t_slices = v_norm[:, None] * tau_o[None, :]
         out = _monolithic_composite(
-            vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse
+            vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse,
+            background_value=background_value, diffuse_only=diffuse_only,
         )
     return out, dirs, lo, hi
 
@@ -336,14 +354,20 @@ def render_shear_warp(
     config,
     base_hw: Tuple[int, int] = (256, 256),
     with_diffuse: bool = False,
+    background_value: float = 1.0,
+    diffuse_only: bool = False,
 ) -> Tuple[RenderOut, BaseImageGeometry]:
     """Render the base-plane image of `voxel_grid` seen from `pose`.
 
     Returns (RenderOut with [U*V, ...] leaves, BaseImageGeometry). The grid's
     tensors may require grad; gradients flow through matmuls only.
     `with_diffuse` also renders the degree-0 shading into
-    extra["diffuse_colour"] from the same resample. `config.use_fused_kernel`
-    selects the monolithic tail, where the compositing kernel lives."""
+    extra["diffuse_colour"] from the same resample; `diffuse_only` renders
+    the degree-0 shading as the colour. With `config.white_bkgd`, empty rays
+    composite onto `background_value`. `config.use_fused_kernel` selects the
+    monolithic tail, where the compositing kernel lives."""
+    if with_diffuse and diffuse_only:
+        raise ValueError("with_diffuse renders both colours; diffuse_only renders the degree-0 one as the colour")
     stream_composite = not getattr(config, "use_fused_kernel", False)
     if getattr(config, "stochastic_density_noise_std", 0.0) > 0.0:
         raise NotImplementedError("stochastic density noise is not ported yet")
@@ -387,6 +411,7 @@ def render_shear_warp(
         volp, eye_g, vs, lo3, base_hw, config, cfg, unpermute_mat=M,
         flip_k=stream_composite and not positive,
         with_diffuse=with_diffuse, stream_composite=stream_composite,
+        background_value=background_value, diffuse_only=diffuse_only,
     )
     geom = BaseImageGeometry(eye=eye_w, dirs=dirs_w, lo=lo2, hi=hi2, perm_index=branch)
     return out, geom
@@ -454,6 +479,44 @@ def shear_warp_supports_pose(voxel_grid: VoxelGrid, pose: CameraPose, min_margin
     eye = _host_f32(pose.translation).astype(np.float64).reshape(1, 3)
     view = -_host_f32(pose.rotation).astype(np.float64)[:, 2].reshape(1, 3)
     return bool(shear_warp_pose_margins(voxel_grid, eye, view)[0] >= min_margin)
+
+
+def check_shear_warp_hemisphere(voxel_grid: VoxelGrid, radius: float, context: str, min_margin: float = 0.5) -> None:
+    """Raise ValueError when some hemisphere pose at `radius` (pitch in
+    [15, 90], yaw in [0, 360): the `get_random_pose` domain) would put the
+    camera inside the grid AABB along its marching axis.
+
+    Checks a 0.25-degree pitch/yaw lattice with a Lipschitz slack (the eye
+    moves at most `radius` world units a radian, so a margin can fall by at
+    most radius * h * sqrt(2) / min voxel size between lattice points), and
+    takes each sample's margin as the least over every axis that could be
+    the marching axis anywhere in its lattice cell."""
+    h_deg = 0.25
+    h = math.radians(h_deg)
+    pitch = np.radians(np.arange(15.0, 90.0 + h_deg, h_deg))
+    yaw = np.radians(np.arange(0.0, 360.0, h_deg))
+    sp, cp = np.sin(pitch), np.cos(pitch)
+    sy, cy = np.sin(yaw), np.cos(yaw)
+    # eye(yaw, pitch) = r * (sy sp, -cy sp, cp), as pose_spherical composes it
+    eyes = np.empty((len(pitch), len(yaw), 3))
+    eyes[..., 0] = radius * sp[:, None] * sy[None, :]
+    eyes[..., 1] = -radius * sp[:, None] * cy[None, :]
+    eyes[..., 2] = radius * cp[:, None] * np.ones((1, len(yaw)))
+    eyes = eyes.reshape(-1, 3)
+    views = -eyes / radius  # spherical poses look at the origin
+    all_m = _all_axis_margins(voxel_grid, eyes, views)
+    absv = np.abs(views)
+    candidate = absv >= absv.max(axis=1, keepdims=True) - 2.0 * h * math.sqrt(2.0)
+    margins = np.where(candidate, all_m, np.inf).min(axis=1)
+    slack = radius * h * math.sqrt(2.0) / float(min(voxel_grid.config.voxel_size))
+    if float(margins.min()) - slack < min_margin:
+        raise ValueError(
+            f"{context}: random hemisphere poses at radius {radius:.4f} can put the camera inside "
+            f"(or within {min_margin} voxels of) the voxel grid's AABB along the marching axis (min "
+            f"sampled margin {margins.min():.2f} voxels, lattice slack {slack:.2f}) — the shear-warp "
+            "path cannot render from inside the volume. Use the exact renderer (use_shear_warp=False), "
+            "shrink the grid's world size, or increase the camera radius."
+        )
 
 
 def check_shear_warp_poses(voxel_grid: VoxelGrid, poses, context: str, min_margin: float = 0.5) -> None:
@@ -587,3 +650,65 @@ def warp_image_to_base(
             wacc.index_add_(0, flat, w)
     base = acc / torch.clamp(wacc, min=1e-8)[:, None]
     return base.reshape(U, V, C), (wacc > 1e-6).reshape(U, V).float()
+
+
+# ----------------------------------------------------------------------------------
+# screen-space render: base composite + the final 2D warp
+# ----------------------------------------------------------------------------------
+
+
+def sample_base_image(base: torch.Tensor, coords: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """Bilinear gather of a base-plane image [U, V, C] at per-screen-pixel
+    base coordinates [H, W, 2] (`screen_to_base`); screen pixels whose rays
+    miss the base window blend toward `fill`. Returns [H, W, C]."""
+    U, V, C = base.shape
+    ui, vi = coords[..., 0], coords[..., 1]
+    u0 = torch.floor(ui).to(torch.int64)
+    v0 = torch.floor(vi).to(torch.int64)
+    out = torch.zeros((*ui.shape, C), dtype=base.dtype, device=base.device)
+    wsum = torch.zeros(ui.shape, dtype=base.dtype, device=base.device)
+    zero = torch.zeros((), dtype=base.dtype, device=base.device)
+    for du in (0, 1):
+        for dv in (0, 1):
+            uu, vv = u0 + du, v0 + dv
+            w = torch.clamp(1.0 - torch.abs(ui - uu), min=0.0) * torch.clamp(1.0 - torch.abs(vi - vv), min=0.0)
+            valid = (uu >= 0) & (uu < U) & (vv >= 0) & (vv < V)
+            w = torch.where(valid, w.to(base.dtype), zero)
+            out = out + w[..., None] * base[uu.clamp(0, U - 1), vv.clamp(0, V - 1)]
+            wsum = wsum + w
+    return out + (1.0 - wsum)[..., None] * fill
+
+
+def render_shear_warp_to_screen(
+    voxel_grid: VoxelGrid,
+    pose: CameraPose,
+    intrinsics: CameraIntrinsics,
+    config,
+    base_hw: Optional[Tuple[int, int]] = None,
+    background_value: Optional[float] = None,
+) -> RenderOut:
+    """Screen-space render: the shear-warp base composite, then
+    `sample_base_image` at `screen_to_base` coordinates. Returns RenderOut
+    with [H, W, C] leaves. `base_hw` defaults to a square lattice at twice
+    the screen's long side; `config.render_diffuse` renders the colour as
+    the degree-0 version (shaded once, through `diffuse_only`)."""
+    if base_hw is None:
+        side = 2 * max(int(intrinsics.height), int(intrinsics.width))
+        base_hw = (side, side)
+    base_hw = tuple(base_hw)
+    if background_value is None:
+        background_value = 1.0 if config.white_bkgd else 0.0
+    out, geom = render_shear_warp(
+        voxel_grid, pose, config, base_hw=base_hw, background_value=background_value,
+        diffuse_only=bool(getattr(config, "render_diffuse", False)),
+    )
+    coords = screen_to_base(pose, intrinsics, geom, voxel_grid, base_hw).to(out.colour.device)
+
+    def as_screen(t, fill):
+        return sample_base_image(t.reshape(*base_hw, -1).float(), coords, fill=fill)
+
+    return RenderOut(
+        colour=as_screen(out.colour, background_value),
+        depth=as_screen(out.depth, 0.0),
+        extra={k: as_screen(v, 0.0) for k, v in out.extra.items()},
+    )

@@ -46,7 +46,6 @@ from voxe_tpu_torch.render.shearwarp import (
     warp_image_to_base,
 )
 from voxe_tpu_torch.train.checkpointing import adam_state_tensors, save_training_state
-from voxe_tpu_torch.train.sds import make_adam
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     CAMERA_BOUNDS,
@@ -118,7 +117,17 @@ def photometric_losses(colour, diffuse_colour, target, apply_diffuse: bool, mask
     return total, metrics
 
 
-def _optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metrics: dict, lr_schedule) -> dict:
+def make_adam(grid: VoxelGrid, lr: float) -> torch.optim.Adam:
+    """Adam over the grid's trainable tensors, with optax.adam's defaults
+    (b1 0.9, b2 0.999, eps 1e-8 outside the square root)."""
+    grid.densities.requires_grad_(True)
+    grid.features.requires_grad_(True)
+    return torch.optim.Adam([grid.densities, grid.features], lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metrics: dict, lr_schedule) -> dict:
+    """Backward of `total`, the lr of the schedule, one update; returns
+    `metrics` with total_loss."""
     total.backward()
     if lr_schedule is not None:  # optax schedules read the count of earlier updates
         first = optimizer.param_groups[0]["params"][0]
@@ -130,9 +139,16 @@ def _optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metri
     return metrics
 
 
-def exponential_decay_staircase(init_value: float, transition_steps: int, decay_rate: float):
+def exponential_decay_staircase(
+    init_value: float, transition_steps: int, decay_rate: float, transition_begin: int = 0
+):
     """optax.exponential_decay(staircase=True): lr after `count` updates."""
-    return lambda count: init_value * decay_rate ** (count // transition_steps)
+
+    def schedule(count: int) -> float:
+        decreased = count - transition_begin
+        return init_value if decreased <= 0 else init_value * decay_rate ** (decreased // transition_steps)
+
+    return schedule
 
 
 def make_recon_train_step(
@@ -163,7 +179,7 @@ def make_recon_train_step(
         total, metrics = photometric_losses(
             out_spec.colour, out_diff.colour, pixels, apply_diffuse_render_regularization
         )
-        return _optimizer_step(optimizer, total, metrics, lr_schedule)
+        return optimizer_step(optimizer, total, metrics, lr_schedule)
 
     return step
 
@@ -215,7 +231,7 @@ def make_recon_train_step_shearwarp(
         total, metrics = photometric_losses(
             img, dimg, target, apply_diffuse_render_regularization, mask=m, denom=denom
         )
-        return _optimizer_step(optimizer, total, metrics, lr_schedule)
+        return optimizer_step(optimizer, total, metrics, lr_schedule)
 
     return step
 

@@ -3,13 +3,15 @@
 
 OpenGL-style camera (+x right, +y up, looking down -z); poses are built as
 yaw @ pitch @ translate_z. Pose construction is tiny host math and stays in
-NumPy; `random_pose` is the counterpart of `random_pose_jax`: it draws pitch
-and yaw from an explicit `torch.Generator`.
+NumPy. Two hemisphere draws: `get_random_pose` on a `np.random.Generator`
+(the host draw of the editing loop, the same sequence as the JAX package's
+for the same seed) and `random_pose`, the counterpart of `random_pose_jax`,
+which draws pitch and yaw from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,14 +121,17 @@ def to8b(x) -> np.ndarray:
     return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8)
 
 
-def adjust_dynamic_range(data, drange_in, drange_out):
+def adjust_dynamic_range(data, drange_in, drange_out, slack: bool = False):
     """Linearly remap `data` from `drange_in` to `drange_out`, clipped to the
-    output range (the dataset's image range)."""
+    output range unless `slack` (then a pure affine map)."""
     if tuple(drange_in) == tuple(drange_out):
         return data
     scale = (np.float32(drange_out[1]) - np.float32(drange_out[0])) / (
         np.float32(drange_in[1]) - np.float32(drange_in[0])
     )
+    if slack:
+        bias = np.float32(drange_out[0]) - np.float32(drange_in[0]) * scale
+        return data * scale + bias
     out = (data - np.float32(drange_in[0])) * scale + np.float32(drange_out[0])
     return out.clip(drange_out[0], drange_out[1])
 
@@ -134,3 +139,15 @@ def adjust_dynamic_range(data, drange_in, drange_out):
 def classify_view_direction(pitch_deg: float, yaw_deg: float) -> str:
     """Bucket a hemisphere pose into {front, side, back, overhead}."""
     return ("side", "overhead", "back", "front")[direction_index(pitch_deg, yaw_deg)]
+
+
+def get_random_pose(
+    radius: float, rng: Optional[np.random.Generator] = None
+) -> Tuple[CameraPose, str, float, float]:
+    """Random hemisphere pose on the host: pitch ~ U[15, 90), yaw ~ U[0, 360).
+    Returns (pose, direction label, pitch_deg, yaw_deg)."""
+    rng = rng if rng is not None else np.random.default_rng()
+    rand_pitch = 15.0 + float(rng.random()) * 75.0
+    rand_yaw = float(rng.random()) * 360.0
+    pose = pose_spherical(rand_yaw, rand_pitch, radius)
+    return pose, classify_view_direction(rand_pitch, rand_yaw), rand_pitch, rand_yaw
