@@ -34,8 +34,22 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      and checkpoints; 5 flash launches a step, compositing launches on every
      step and feedback render, the training time per step, peak memory;
  10. edit-data-pose: the same CLI in dataset-pose mode, 2 steps;
- 11. the `kernels` JSON line, the card line, and the final JSON line.
-Imports nothing from JAX or the JAX package.
+ 11. sd14-weights: SD 1.4 at its published widths (the refinement's model:
+     head_dim 40 at 64^2, so the plain attention there) with seeded random
+     weights, written as an HF snapshot and loaded back bitwise; the plain
+     64^2 self-attention's time and transient memory; then
+     refine-breakdown: one refinement iteration at full width (160^3, 384^2
+     base) layer by layer;
+ 12. refine-cli: the refine CLI module on the edit-cli phase's
+     model_final.pth and the recon CLI's, with the 1.4 snapshot: 6
+     shear-warp iterations (2 compositing launches each), feedback and
+     snapshots every 3 (5 launches a feedback point), the graph cut and merge
+     at 160^3; then the segment CLI on its attention grids;
+ 13. edit-refine: the edit CLI with --do_refinement and --post_process_scc,
+     2 SDS steps and 2 refinement iterations;
+ 14. the `kernels` JSON line, the card line, and the final JSON line.
+Every phase's seconds are printed ([phase-seconds]). Imports nothing from
+JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -57,11 +71,15 @@ import torch.nn.functional as F
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
 from voxe_tpu_torch.cli import edit_pretrained_relu_field as edit_cli
+from voxe_tpu_torch.cli import refine_edited_relu_field as refine_cli
+from voxe_tpu_torch.cli import segment_attn_relu_field as segment_cli
 from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
+from voxe_tpu_torch.models.sd import cross_attn
 from voxe_tpu_torch.models.sd import weights as sd_weights
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
+from voxe_tpu_torch.models.sd.unet import flash_self_attention_enabled
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
 from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
@@ -70,6 +88,7 @@ from voxe_tpu_torch.render.accumulate import _pad_samples
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
 from voxe_tpu_torch.render.shearwarp import lane_aligned_res, orient_base_image, render_shear_warp
 from voxe_tpu_torch.train import recon as train_recon
+from voxe_tpu_torch.train import refine as train_refine
 from voxe_tpu_torch.train import sds as train_sds
 from voxe_tpu_torch.train.losses import density_correlation_loss
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
@@ -204,9 +223,10 @@ def phase_composite_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     # every shape a driven path launches at: 160 slices slab-padded to 256
     # as accumulate pads them, on the recon step's 768^2 base, the edit
-    # step's 384^2 base and the edit CLI's 800^2 feedback base (2x the 400^2
-    # screen); the held-out render chunk; ragged; dense (T underflows to 0
-    # within the first ~130 of 512 samples)
+    # step's and the refinement's 384^2 base and the CLIs' 800^2 feedback
+    # base (2x the 400^2 screen); the held-out render chunk; the segment
+    # CLI's exact feedback chunk (the edit model's 512 samples a ray);
+    # ragged; dense (T underflows to 0 within the first ~130 of 512 samples)
     def slab_padded(n):
         dens, depths, dirn = composite_inputs(g, n, GRID_RES, 5.0, dev)
         return _pad_samples(dens, depths, "slab")[:2] + (dirn,)
@@ -216,6 +236,7 @@ def phase_composite_kernel(dev) -> dict:
         "edit_step_slab_padded": slab_padded(BASE * BASE),
         "edit_feedback_slab_padded": slab_padded((2 * SCENE) ** 2),
         "heldout_chunk": composite_inputs(g, 32768, 1024, 5.0, dev),
+        "exact_feedback_chunk": composite_inputs(g, 32768, 512, 5.0, dev),
         "ragged": composite_inputs(g, 1000, 37, 5.0, dev),
         "dense_underflow": composite_inputs(g, 2048, 512, 50.0, dev),
     }
@@ -607,15 +628,18 @@ def write_safetensors(tensors: dict, path: Path) -> None:
 
 def write_hf_snapshot(sd: StableDiffusion, root: Path) -> None:
     """The port's weights under their HF names (the loader's map, first
-    candidate), with SD 2.x's linear proj_in / proj_out, and a byte-level
-    BPE vocab that pads with "!" as SD 2.x does."""
+    candidate) and a byte-level BPE vocab. SD 2.x: linear proj_in /
+    proj_out, padding with "!"; SD 1.x: 1x1-conv proj_in / proj_out,
+    padding with the end-of-text token."""
+    sd2 = sd.config.version.startswith("2")
     for name, sub in sd_weights.HF_SUBFOLDERS.items():
         module = getattr(sd, name)
         names = sd_weights.hf_names(module, sd_weights.NAME_FNS[name])
         tensors = {}
         for key, t in module.state_dict().items():
             hf = names[key][0][0]
-            tensors[hf] = t[:, :, 0, 0] if (".proj_in." in hf or ".proj_out." in hf) and t.dim() == 4 else t
+            linear = sd2 and (".proj_in." in hf or ".proj_out." in hf) and t.dim() == 4
+            tensors[hf] = t[:, :, 0, 0] if linear else t
         write_safetensors(tensors, root / sub / "model.safetensors")
     byte_tokens = list(_bytes_to_unicode().values())
     vocab = {tok: i for i, tok in enumerate(byte_tokens + [t + "</w>" for t in byte_tokens])}
@@ -623,20 +647,22 @@ def write_hf_snapshot(sd: StableDiffusion, root: Path) -> None:
     (root / "tokenizer").mkdir(parents=True)
     (root / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
     (root / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
-    (root / "tokenizer" / "special_tokens_map.json").write_text(json.dumps({"pad_token": "!"}))
+    pad = "!" if sd2 else "<|endoftext|>"
+    (root / "tokenizer" / "special_tokens_map.json").write_text(json.dumps({"pad_token": pad}))
 
 
-def phase_sd_weights(dev, workdir: Path) -> Path:
-    """SD 2.0 at published widths through the HF snapshot loader; returns
-    the snapshot directory."""
-    src = StableDiffusion(SD_VERSION, init_mode="random", seed=5, device=dev)
-    root = workdir / "sd2_snapshot"
+def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
+    """SD 2.0 (or 1.4) at published widths through the HF snapshot loader;
+    returns the snapshot directory."""
+    phase = "sd-weights" if version == SD_VERSION else "sd14-weights"
+    src = StableDiffusion(version, init_mode="random", seed=5, device=dev)
+    root = workdir / f"sd{version.replace('.', '')}_snapshot"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     write_hf_snapshot(src, root)
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loaded = StableDiffusion(SD_VERSION, weights_dir=root, device=dev)
+    loaded = StableDiffusion(version, weights_dir=root, device=dev)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     g = torch.Generator(device=dev).manual_seed(6)
@@ -654,14 +680,177 @@ def phase_sd_weights(dev, workdir: Path) -> Path:
     torch.cuda.synchronize()
     equal = {k: bool(torch.equal(a, b)) for k, (a, b) in pairs.items()}
     size_gb = sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9
-    log("sd-weights", sd=SD_VERSION, snapshot_gb=size_gb, write_s=write_s, load_s=load_s, bitwise_equal=equal,
+    log(phase, sd=version, snapshot_gb=size_gb, write_s=write_s, load_s=load_s, bitwise_equal=equal,
         tokenizer=type(loaded.tokenizer).__name__, pad_id=loaded.tokenizer.pad_token_id,
         unet_flash_launches=fa.LAUNCHES - before)
     if not all(equal.values()) or not isinstance(loaded.tokenizer, CLIPTokenizer):
-        raise AssertionError(f"the loaded SD 2.0 differs from its source: {equal}")
+        raise AssertionError(f"the loaded SD {version} differs from its source: {equal}")
+    if version != SD_VERSION:
+        plain_attention_64(dev, loaded)
+        refine_breakdown(dev, loaded, workdir)
     del src, loaded, pairs
     torch.cuda.empty_cache()
     return root
+
+
+def plain_attention_64(dev, sd: StableDiffusion) -> None:
+    """SD 1.x's 64^2 self-attention (head_dim 40: outside the flash gate and
+    the kernel) in the plain version: time and transient memory per call."""
+    heads = sd.config.unet.attention_head_dim[0]
+    width = sd.config.unet.block_out_channels[0]
+    shape = (2, 4096, heads, width // heads)
+    q, k, v = (torch.randn(shape, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    transient = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10, warmup=2)
+    log("plain-attention-64", shape=list(shape), gated_to_flash=flash_self_attention_enabled(shape[1], shape[3]),
+        ms=ms, transient_gib=transient, calls_per_unet_pass=5)
+
+
+def refine_breakdown(dev, sd: StableDiffusion, workdir: Path) -> None:
+    """One refinement iteration at full width, layer by layer (synchronised
+    host clock, median of 3 after one warm-up): the edit-cli phase's 160^3
+    grid with two -20 attention channels, the 384^2 base, SD 1.4."""
+    model, _ = load_volumetric_model(workdir / "edit-cli" / "saved_models" / "model_final.pth", device=dev, with_attn=True)
+    grid, rcfg = model.grid, model.render_config
+    attn = grid.attn.repeat(1, 1, 1, 2).requires_grad_(True)
+    opt = torch.optim.Adam([attn], lr=0.028, betas=(0.9, 0.999), eps=1e-8)
+    pose = pose_spherical(30.0, 40.0, 4.0311)
+    rot = torch.as_tensor(pose.rotation, device=dev)
+    cam = CameraPose(rot, torch.as_tensor(pose.translation, device=dev))
+    text = sd.get_text_embeds("a dog wearing a party hat, side view")
+    n_tok = sd.get_num_tokens("a dog wearing a party hat, side view")
+    idxs, emask, omask = train_refine.token_selection(n_tok, [4, 5], None)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    base_hw = (BASE, BASE)
+    parts = {}
+
+    def clock(name, fn):
+        return clocked(parts, name, fn)
+
+    for _ in range(4):
+        with torch.no_grad():
+            out = clock("rgb_frame", lambda: render_shear_warp(grid, cam, rcfg, base_hw=base_hw)[0])
+        rgb = orient_base_image(out.colour.reshape(BASE, BASE, 3), rot)[None]
+        lat = clock("resize_vae_encode", lambda: sd.encode_imgs(sd.resize_to_image_size(rgb), None))
+        noisy = sd.scheduler.add_noise(lat, torch.randn(lat.shape, generator=gen, device=dev), 200)
+        _, store = clock("capture_unet", lambda: sd.unet_noise_pred(torch.cat([noisy] * 2), 200, text, capture_attn=True))
+        targets = clock("token_maps", lambda: train_refine.select_targets(
+            cross_attn.aggregate_token_maps(store, idxs, BASE, BASE), emask.to(dev), omask.to(dev)))
+        opt.zero_grad(set_to_none=True)
+        aout = clock("attn_render_fwd", lambda: render_shear_warp(
+            grid.replace(attn=attn), cam, rcfg, base_hw=base_hw, attn_mode=True, background_value=0.0)[0])
+        rendered = orient_base_image(aout.colour.reshape(BASE, BASE, 2), rot)
+        loss = sum(train_refine.calc_loss_on_attn_grid(rendered[..., c], targets[c]) for c in (0, 1))
+        clock("attn_render_bwd", loss.backward)
+        clock("adam", opt.step)
+    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
+    log("refine-breakdown", **{f"{k}_ms": v for k, v in med.items()}, sum_ms=sum(med.values()))
+
+
+def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
+    """The refine CLI module end to end, then the segment CLI on its
+    attention grids; returns each path's (flash, compositing) launches."""
+    iters, every = 6, 3
+    out = workdir / "refine-cli"
+    recon = workdir / "cli_out" / "saved_models" / "model_final.pth"
+    edited = workdir / "edit-cli" / "saved_models" / "model_final.pth"
+    args = [
+        "-d", str(workdir / "scene"), "-i", str(edited), "-r", str(recon), "-o", str(out),
+        "-p", "a dog wearing a party hat", "-eidx", "4 5", "--data_downsample_factor", "1",
+        "--sd_weights_dir", str(snapshot14), "--num_iterations_per_stage", str(iters),
+        "--feedback_frequency", str(every), "--save_frequency", str(every), "--device", str(dev),
+    ]
+    records = LogRecords()
+    port_log = logging.getLogger("voxe_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    port_log.addHandler(records)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of the refine path's run
+    try:
+        refine_cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        port_log.removeHandler(records)
+    counts = {"refine-cli": (fa.LAUNCHES, comp.LAUNCHES)}
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    done = next(r for r in records.records if hasattr(r, "time_training"))
+    edges = next(r.graph_cut_edges for r in records.records if hasattr(r, "graph_cut_edges"))
+    saved = out / "saved_models"
+    refined, _ = load_volumetric_model(saved / "model_final_refined.pth", device=dev)
+    keep = torch.unique(refined.grid.attn).tolist()
+    feedback = sorted({1, iters} | set(range(every, iters + 1, every)))
+    pngs = [out / "training_logs" / "rendered_output" / f"{n}_{i}.png" for i in feedback
+            for n in ("edit_attn_map", "pred_attn_edit", "render_diff", "attn_attn_iter")]
+    log("refine-cli", iterations=iters, ms_per_iteration=done.time_training / iters * 1e3,
+        ms_per_iteration_note="time_training / iterations; the first iteration's warm-up included",
+        time_training_s=done.time_training, phase_s=seconds, peak_mem_gib=peak, flash_launches=counts["refine-cli"][0],
+        composite_launches=counts["refine-cli"][1], graph_cut_s=done.graph_cut_s, graph_cut_nodes=done.graph_cut_nodes,
+        graph_cut_edges=edges, edit_voxels=done.edit_voxels, keep_values=keep,
+        refined_loads_back=list(refined.grid.grid_dims), pngs_written=sum(p.exists() for p in pngs))
+    if counts["refine-cli"] != (0, 2 * iters + 5 * len(feedback)):
+        raise AssertionError(f"refine-cli: launches {counts['refine-cli']}, want (0, {2 * iters + 5 * len(feedback)})")
+    if refined.grid.grid_dims != (GRID_RES,) * 3 or not set(keep) <= {-10.0, -5.0, 0.0}:
+        raise AssertionError(f"refine-cli: model_final_refined.pth holds {refined.grid.grid_dims}, keep grid {keep}")
+    if not torch.isfinite(refined.grid.densities).all() or not all(p.exists() for p in pngs):
+        raise AssertionError("refine-cli: non-finite refined grid or feedback PNGs missing")
+
+    seg_out = workdir / "segment-cli"
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of the segment path's run
+    segment_cli.main([
+        "-d", str(workdir / "scene"), "-ie", str(saved / "model_final_attn_edit.pth"),
+        "-io", str(saved / "model_final_attn_object.pth"), "-r", str(recon), "-i", str(edited),
+        "-o", str(seg_out), "--data_downsample_factor", "1", "--device", str(dev),
+    ])
+    torch.cuda.synchronize()
+    counts["segment-cli"] = (fa.LAUNCHES, comp.LAUNCHES)
+    seg, _ = load_volumetric_model(seg_out / "saved_models" / "model_final_refined.pth", device=dev)
+    same = bool(torch.equal(seg.grid.attn, refined.grid.attn) and torch.equal(seg.grid.densities, refined.grid.densities))
+    log("segment-cli", phase_s=time.perf_counter() - t0, composite_launches=counts["segment-cli"][1],
+        loads_back=list(seg.grid.grid_dims), same_merge_as_refine_cli=same)
+    if not same or counts["segment-cli"][1] == 0:
+        raise AssertionError(f"segment-cli: merge differs from the refine CLI's ({same}) or no launches")
+    return counts
+
+
+def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> tuple:
+    """The edit CLI with --do_refinement and --post_process_scc; returns its
+    (flash, compositing) launches."""
+    out = workdir / "edit-refine"
+    args = [
+        "-i", str(workdir / "cli_out" / "saved_models" / "model_final.pth"), "-o", str(out),
+        "-p", "a dog wearing a party hat", "-d", str(workdir / "scene"), "--data_downsample_factor", "1",
+        "--sd_weights_dir", str(snapshot), "--sd_version", SD_VERSION, "--sd_refine_weights_dir", str(snapshot14),
+        "--num_iterations_edit", "2", "--num_iterations_refine", "2", "--fast_debug_mode", "True",
+        "--do_refinement", "True", "--post_process_scc", "True", "-eidx", "4 5", "--device", str(dev),
+    ]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of this path's run
+    edit_cli.main(args)
+    torch.cuda.synchronize()
+    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    model, _ = load_volumetric_model(out / "saved_models" / "model_final_refined.pth", device=dev)
+    log("edit-refine", sds_steps=2, refine_iterations=2, phase_s=time.perf_counter() - t0,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=flash, composite_launches=composite,
+        refined_loads_back=list(model.grid.grid_dims), finite=bool(torch.isfinite(model.grid.densities).all()))
+    # 5 flash launches a SDS step; compositing: 1 a SDS step, 2 a refinement
+    # iteration and 5 a refinement feedback point (the refinement runs its
+    # feedback: iterations 1 and 2)
+    if flash != 10 or composite != 2 + 2 * 2 + 5 * 2:
+        raise AssertionError(f"edit-refine: launches {flash} flash, {composite} compositing")
+    if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all():
+        raise AssertionError("edit-refine: model_final_refined.pth holds no finite 160^3 grid")
+    return flash, composite
 
 
 class LogRecords(logging.Handler):
@@ -738,6 +927,14 @@ def build_all() -> None:
     log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
 
 
+def timed(name: str, fn, *args):
+    """Run one phase; print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log("phase-seconds", name=name, seconds=time.perf_counter() - t0)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -747,22 +944,28 @@ def main() -> int:
     log("env", python=sys.version.split()[0], torch=torch.__version__, cuda=torch.version.cuda,
         nvcc=nvcc.stdout.strip().splitlines()[-1].replace(" ", "_"),
         card=card_line().replace(" ", "_"), count=torch.cuda.device_count())
-    build_all()  # prints ptxas' registers / shared memory / spills when it builds
-    flash_row = phase_flash_kernel(dev)
-    comp_row = phase_composite_kernel(dev)
-    phase_small_check(dev)
-    phase_small_check_recon(dev)
-    flash, composite = phase_main(dev)
+    timed("build", build_all)  # prints ptxas' registers / shared memory / spills when it builds
+    flash_row = timed("flash-kernel", phase_flash_kernel, dev)
+    comp_row = timed("composite-kernel", phase_composite_kernel, dev)
+    timed("small-check", phase_small_check, dev)
+    timed("small-check-recon", phase_small_check_recon, dev)
+    flash, composite = timed("main-path", phase_main, dev)
     flash_row["launches"] = flash
     by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
-        comp_row["launches"] = phase_recon_main(dev, Path(tmp))
+        work = Path(tmp)
+        comp_row["launches"] = timed("recon-main-path", phase_recon_main, dev, work)
         by_path["recon"] = {"flash_attn_fwd": 0, "composite_fwd": comp_row["launches"]}
-        phase_recon_cli(Path(tmp))
-        snapshot = phase_sd_weights(dev, Path(tmp))
+        timed("recon-cli", phase_recon_cli, work)
+        snapshot = timed("sd-weights", phase_sd_weights, dev, work)
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
-            flash, composite = phase_edit_cli(dev, Path(tmp), snapshot, data_pose)
+            flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        snapshot14 = timed("sd14-weights", phase_sd_weights, dev, work, "1.4")
+        for name, (flash, composite) in timed("refine-cli", phase_refine_cli, dev, work, snapshot14).items():
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        flash, composite = timed("edit-refine", phase_edit_refine, dev, work, snapshot, snapshot14)
+        by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
     for row in (flash_row, comp_row):
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
     print(json.dumps({"kernels": [flash_row, comp_row]}), flush=True)

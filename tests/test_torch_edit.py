@@ -394,7 +394,8 @@ def test_cli_flags_match_click_command():
 def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
     """The recon CLI then the edit CLI on the CPU with the tiny SD: feedback
     PNGs and checkpoints written, a model_final.pth that both packages read;
-    the refinement and multi-device flags raise."""
+    refinement without its token indices or SD 1.4 weights is refused, and
+    the multi-device flags raise."""
     trecon_cli.main([
         "-d", str(tiny_scene), "-o", str(tmp_path / "recon"), "--grid_dims", "16", "16", "16", "--num_stages", "1",
         "--num_iterations_per_stage", "2", "--fast_debug_mode", "True", "--use_fused_kernel", "True", "--device", "cpu",
@@ -413,8 +414,13 @@ def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
     j_model, _ = jvol.load_volumetric_model(tmp_path / "edit" / "saved_models" / "model_final.pth")
     np.testing.assert_array_equal(np.asarray(j_model.grid.densities), final.grid.densities.numpy())
     assert dataclasses.asdict(j_model.render_config)["use_fused_kernel"]
-    for extra in (["--do_refinement", "True"], ["--post_process_scc", "True"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    # refinement needs the edit tokens and, with real SD weights, an SD 1.4
+    # snapshot: both are refused before the edit starts (the refinement runs
+    # themselves are in test_torch_refine_seg.py)
+    for extra in (["--do_refinement", "True"],
+                  ["--do_refinement", "True", "-eidx", "4", "--sd_version", "2.0", "--sd_weights_dir", str(tmp_path)]):
+        with pytest.raises(SystemExit):
             tcli.main(args + extra)
+    assert not (tmp_path / "edit" / "saved_models" / "model_final_refined.pth").exists()
     with pytest.raises(NotImplementedError, match="num_devices"):
         tcli.main(args + ["--num_devices", "2"])

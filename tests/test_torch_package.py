@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of voxe_tpu_torch (nor
 chip_smoke.py) imports jax, flax, optax, safetensors or voxe_tpu (the card
-has no safetensors package: the port reads the format itself). Plus the
+has no safetensors package: the port reads the format itself), and its
+native segmentation backend is built from the port's own C++ sources into
+its own build directory. Plus the
 flash kernel's wrapper contract, and the kernel held against its plain
 version on the card (marked `cuda`: skipped without one)."""
 import os
@@ -33,6 +35,13 @@ def test_port_imports_no_jax_or_reference_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu'))\n"
+        "from voxe_tpu_torch.seg import native\n"
+        "native.get_lib()\n"
+        "srcs = [native.SEG_SRC_DIR / s for s in native.SOURCES]\n"
+        "bad += [str(s) for s in srcs if not (s.is_file() and 'voxe_tpu_torch/csrc/seg' in s.as_posix())]\n"
+        "libs = {l.split()[-1] for l in open('/proc/self/maps') if 'voxeseg' in l}\n"
+        "bad += sorted(l for l in libs if '/voxe_tpu_torch/_build/' not in l)\n"
+        "bad += [] if libs else ['no seg library loaded']\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

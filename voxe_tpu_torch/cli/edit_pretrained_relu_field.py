@@ -8,10 +8,13 @@ argparse, plus `--device`).
         -d scene [--sd_weights_dir sd2_snapshot] [--device cpu]
 
 `--sd_weights_dir` points at a local HF snapshot (text_encoder/, vae/,
-unet/, tokenizer/); without it the SD weights are seeded random. The
-refinement stage is not ported: `--do_refinement` and `--post_process_scc`
-raise. `--hf_auth_token`, `--num_workers` and the wandb flags are accepted
-and unused, as in the JAX CLI.
+unet/, tokenizer/); without it the SD weights are seeded random.
+`--do_refinement True` then refines the edit on SD 1.4 (`-eidx` names the
+edit tokens; `--sd_refine_weights_dir` is the 1.4 snapshot, required when
+`--sd_weights_dir` is given), writing `model_final_refined.pth`;
+`--post_process_scc True` keeps the largest connected component of the
+final model's density. `--hf_auth_token`, `--num_workers` and the wandb
+flags are accepted and unused, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -24,10 +27,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from voxe_tpu_torch.cli.train_sh_based_voxel_grid_with_posed_images import _bool, _min_one
-from voxe_tpu_torch.data.dataset import PosedImagesDataset
+from voxe_tpu_torch.cli.train_sh_based_voxel_grid_with_posed_images import (
+    _bool,
+    _min_one,
+    check_device,
+    load_train_dataset,
+)
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
 from voxe_tpu_torch.train.sds import train_sh_vox_grid_vol_mod_with_posed_images_and_sds
+from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.misc import log_config_to_disk
 
 
@@ -113,31 +121,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
-    """Run the edit; returns the edited model (also saved as
+    """Run the edit, then the refinement and the SCC post-process when asked;
+    returns the edited model (also saved as
     `<output_path>/saved_models/model_final.pth`)."""
-    config = build_parser().parse_args(argv)
-    for flag in ("do_refinement", "post_process_scc"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"--{flag}: the refinement stage is not ported yet (ROADMAP item 9)"
+    parser = build_parser()
+    config = parser.parse_args(argv)
+    if config.do_refinement:
+        if config.edit_idx is None:
+            parser.error("--do_refinement needs -eidx / --edit_idx (the edit token indices)")
+        if config.sd_weights_dir is not None and config.sd_refine_weights_dir is None and config.sd_version != "tiny":
+            # fail before the edit: the --sd_weights_dir snapshot is SD 2.x and
+            # cannot load into the 1.4 architecture the refinement uses
+            parser.error(
+                "--do_refinement with real SD weights needs --sd_refine_weights_dir pointing at a "
+                "converted SD **1.4** snapshot (refinement uses 1.4)"
             )
     if config.multihost or config.num_devices > 1:
         raise NotImplementedError(
             "--multihost / --num_devices > 1: multi-device edits are not ported yet "
             "(ROADMAP item 8, num_devices > 1)"
         )
-    if config.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
-    data_path, output_path = Path(config.data_path), Path(config.output_path)
+    check_device(config.device)
+    output_path = Path(config.output_path)
     log_config_to_disk(vars(config), output_path)
-
-    split = ("train", "train_camera_params.json") if config.separate_train_test_folders else (
-        "images", "camera_params.json")
-    train_dataset = PosedImagesDataset(
-        images_dir=data_path / split[0], camera_params_json=data_path / split[1],
-        normalize_scene_scale=config.normalize_scene_scale, downsample_factor=config.data_downsample_factor,
-        rgba_white_bkgd=config.white_bkgd, device=config.device,
-    )
+    train_dataset = load_train_dataset(config)
     intrinsics = train_dataset.camera_intrinsics
 
     pretrained_vol_mod, _ = load_volumetric_model(Path(config.ref_model_path), device=config.device)
@@ -151,7 +158,7 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
         ),
         dict(pretrained_vol_mod.extra_info),
     )
-    return train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
+    edited = train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
         sds_vol_mod=sds_vol_mod,
         pretrained_vol_mod=pretrained_vol_mod,
         train_dataset=train_dataset,
@@ -191,6 +198,64 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
         use_shear_warp=config.use_shear_warp,
         shear_warp_base_res=config.shear_warp_base_res,
     )
+    saved = output_path / "saved_models"
+    if config.do_refinement:
+        from voxe_tpu_torch.train.refine import refine_edited_relu_field
+
+        vol_mod_edit, vol_mod_obj, vol_mod_output = (
+            load_volumetric_model(saved / "model_final.pth", device=config.device, with_attn=True)[0]
+            for _ in range(3)
+        )
+        refine_edited_relu_field(
+            vol_mod_edit=vol_mod_edit,
+            vol_mod_object=vol_mod_obj,
+            vol_mod_ref=pretrained_vol_mod,
+            vol_mod_output=vol_mod_output,
+            train_dataset=train_dataset,
+            output_dir=output_path,
+            prompt=config.prompt,
+            edit_idx=[int(i) for i in config.edit_idx.split()],
+            object_idx=config.object_idx,
+            timestamp=config.timestamp,
+            image_dims=(intrinsics.height, intrinsics.width),
+            ray_batch_size=config.ray_batch_size,
+            num_iterations=config.num_iterations_refine,
+            learning_rate=config.learning_rate_attn_learning,
+            save_freq=config.save_frequency,
+            feedback_freq=config.feedback_frequency,
+            summary_freq=config.summary_frequency,
+            apply_diffuse_render_regularization=config.apply_diffuse_render_regularization,
+            verbose_rendering=config.verbose_rendering,
+            attn_tv_weight=config.attn_tv_weight,
+            kval=config.kval,
+            edit_mask_thresh=config.edit_mask_thresh,
+            num_obj_voxels_thresh=config.num_obj_voxels_thresh,
+            min_num_edit_voxels=config.min_num_edit_voxels,
+            top_k_edit_thresh=config.top_k_edit_thresh,
+            top_k_obj_thresh=config.top_k_obj_thresh,
+            data_pose_mode=config.data_pose_mode,
+            downsample_refine_grid=config.downsample_refine_grid,
+            sd_weights_dir=Path(config.sd_refine_weights_dir) if config.sd_refine_weights_dir else None,
+            # the reference refines on SD 1.4, unless the tiny plumbing config was asked for
+            sd_version="tiny" if config.sd_version == "tiny" else "1.4",
+            use_shear_warp=config.use_shear_warp,
+            shear_warp_base_res=config.shear_warp_base_res,
+        )
+    if config.post_process_scc:
+        from voxe_tpu_torch.seg.components import scc_post_process
+
+        target = saved / ("model_final_refined.pth" if config.do_refinement else "model_final.pth")
+        vol_mod, _ = load_volumetric_model(target, device=config.device, with_attn=config.do_refinement)
+        new_densities = scc_post_process(
+            vol_mod.grid.densities.cpu().numpy(), pretrained_vol_mod.grid.densities.cpu().numpy()
+        )
+        vol_mod.grid = vol_mod.grid.replace(densities=torch.from_numpy(new_densities).to(config.device))
+        vol_mod.save(target, extra_info={
+            CAMERA_BOUNDS: list(train_dataset.camera_bounds),
+            CAMERA_INTRINSICS: list(intrinsics),
+            HEMISPHERICAL_RADIUS: train_dataset.get_hemispherical_radius_estimate(),
+        })
+    return edited
 
 
 if __name__ == "__main__":

@@ -37,6 +37,26 @@ def _bool(text: str) -> bool:
     raise argparse.ArgumentTypeError(f"{text!r} is not a valid boolean")
 
 
+def check_device(device: str) -> None:
+    """Entry points run on the card unless the caller asks for the CPU."""
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
+
+
+def load_train_dataset(config) -> PosedImagesDataset:
+    """The training split in the JAX CLIs' layout (`train/` with
+    train_camera_params.json, or `images/` with camera_params.json)."""
+    data_path = Path(config.data_path)
+    split = ("train", "train_camera_params.json") if config.separate_train_test_folders else (
+        "images", "camera_params.json")
+    return PosedImagesDataset(
+        images_dir=data_path / split[0], camera_params_json=data_path / split[1],
+        normalize_scene_scale=getattr(config, "normalize_scene_scale", False),
+        downsample_factor=config.data_downsample_factor,
+        rgba_white_bkgd=getattr(config, "white_bkgd", True), device=config.device,
+    )
+
+
 def _min_one(text: str) -> float:
     value = float(text)
     if value < 1.0:
@@ -98,8 +118,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     config = build_parser().parse_args(argv)
     if config.multihost:
         raise NotImplementedError("--multihost is not ported yet")
-    if config.device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device (pass --device cpu to run on the CPU)")
+    check_device(config.device)
     data_path, output_path = Path(config.data_path), Path(config.output_path)
     log_config_to_disk(vars(config), output_path)
 

@@ -1,15 +1,16 @@
 """Explicit SH voxel-grid scene representation
 (counterpart of voxe_tpu/grid/voxels.py).
 
-`VoxelGrid` is a small container of tensors — densities [X,Y,Z,1] and
-features [X,Y,Z,F] — with a frozen `VoxelGridConfig` (the attention
-channels of the refinement stage come with that slice). Trainers hand
-`densities`/`features` to a torch optimizer, which updates them in place.
+`VoxelGrid` is a small container of tensors — densities [X,Y,Z,1],
+features [X,Y,Z,F], and for the refinement stage an optional attention
+field attn [X,Y,Z,C] and a frozen copy of the densities, orig_densities
+[X,Y,Z,1] — with a frozen `VoxelGridConfig`. Trainers hand the tensors they
+train to a torch optimizer, which updates them in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,6 +84,8 @@ class VoxelGrid:
     densities: torch.Tensor  # [X, Y, Z, 1]
     features: torch.Tensor  # [X, Y, Z, F]
     config: VoxelGridConfig = VoxelGridConfig()
+    attn: Optional[torch.Tensor] = None  # [X, Y, Z, C] attention logits
+    orig_densities: Optional[torch.Tensor] = None  # [X, Y, Z, 1] frozen copy
 
     @property
     def grid_dims(self) -> Tuple[int, int, int]:
@@ -102,6 +105,10 @@ class VoxelGrid:
 
     def replace(self, **kwargs) -> "VoxelGrid":
         return dataclasses.replace(self, **kwargs)
+
+    def with_frozen_orig_densities(self) -> "VoxelGrid":
+        """Snapshot the current densities as the frozen reference copy."""
+        return self.replace(orig_densities=self.densities.detach().clone())
 
 
 def _aabb_tensors(aabb: AxisAlignedBoundingBox, like: torch.Tensor):
@@ -135,10 +142,25 @@ def grid_query(grid: VoxelGrid, points: torch.Tensor) -> torch.Tensor:
     """Interpolated [features..., density] at world points [N, 3]: the
     density pre-activation applies to raw * expected_density_scale before
     interpolation, the post-activations after."""
+    return _query(grid, grid.features, grid.densities, points)
+
+
+def grid_query_attn(grid: VoxelGrid, points: torch.Tensor, use_orig_densities: bool = False) -> torch.Tensor:
+    """Interpolated [attn..., density] at world points [N, 3], the attention
+    field taking the features' activations; with `use_orig_densities` the
+    density comes from the frozen copy."""
+    if grid.attn is None:
+        raise ValueError("grid has no attn channel")
+    if use_orig_densities and grid.orig_densities is None:
+        raise ValueError("grid has no frozen orig_densities")
+    return _query(grid, grid.attn, grid.orig_densities if use_orig_densities else grid.densities, points)
+
+
+def _query(grid: VoxelGrid, features: torch.Tensor, densities: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     cfg = grid.config
     normalized = _normalize_points(grid.aabb, points)
-    pre_density = ACTIVATIONS[cfg.density_preactivation](grid.densities * cfg.expected_density_scale)
-    pre_features = ACTIVATIONS[cfg.feature_preactivation](grid.features)
+    pre_density = ACTIVATIONS[cfg.density_preactivation](densities * cfg.expected_density_scale)
+    pre_features = ACTIVATIONS[cfg.feature_preactivation](features)
     unified = torch.cat([pre_features, pre_density], dim=-1)
     if cfg.gather_dtype == "bfloat16":
         unified = unified.to(torch.bfloat16)
@@ -161,10 +183,17 @@ def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
     return w.to(torch.float32).to(device)
 
 
-def scale_voxel_grid(grid: VoxelGrid, output_size: Tuple[int, int, int]) -> VoxelGrid:
+def scale_voxel_grid(grid: VoxelGrid, output_size: Tuple[int, int, int], include_attn: bool = False) -> VoxelGrid:
     """Trilinearly resample the grid to `output_size`; the voxel size
-    rescales so the world-space AABB is kept."""
-    unified = torch.cat([grid.features, grid.densities], dim=-1).float()
+    rescales so the world-space AABB is kept. With `include_attn` the first
+    attention channel is resampled too (as in the JAX package); otherwise the
+    result has no attention field."""
+    channels = [grid.features, grid.densities]
+    if include_attn:
+        if grid.attn is None:
+            raise ValueError("include_attn: grid has no attn channel")
+        channels.append(grid.attn)
+    unified = torch.cat(channels, dim=-1).float()
     dev = unified.device
     for axis in range(3):
         m = _resize_matrix(unified.shape[axis], int(output_size[axis]), dev)
@@ -180,4 +209,5 @@ def scale_voxel_grid(grid: VoxelGrid, output_size: Tuple[int, int, int]) -> Voxe
         densities=unified[..., num_feat : num_feat + 1].contiguous(),
         features=unified[..., :num_feat].contiguous(),
         config=dataclasses.replace(grid.config, voxel_size=new_voxel_size),
+        attn=unified[..., num_feat + 1 : num_feat + 2].contiguous() if include_attn else None,
     )

@@ -16,11 +16,14 @@ thre3d_atom/thre3d_reprs/sd.py:20-385).
   drawn in [min_step, max_step] from a `torch.Generator`.
 * `scoreDistillationLoss` holds the four "<prompt>, {side, overhead, back,
   front} view" encodings (or the bare prompt's).
+* `attention_maps` / `get_attn_map` are the refinement stage's attention
+  extraction: one noised CFG UNet pass with capture, then per-token maps at
+  the render's size (`cross_attn.aggregate_token_maps`).
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,7 +34,7 @@ from voxe_tpu_torch.models.sd.clip_text import CLIPTextModel
 from voxe_tpu_torch.models.sd.config import SD_VERSIONS, SDConfig, tiny_test_config
 from voxe_tpu_torch.models.sd.norms import GroupNorm
 from voxe_tpu_torch.models.sd.scheduler import DDIMScheduler
-from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer
+from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer, get_num_tokens
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
@@ -171,6 +174,9 @@ class StableDiffusion:
         lo, hi = self.t_bounds()
         return int(torch.randint(lo, hi + 1, (), generator=generator, device=generator.device))
 
+    def get_num_tokens(self, prompt: str) -> int:
+        return get_num_tokens(self.tokenizer, prompt)
+
     @torch.no_grad()
     def get_text_embeds(self, prompt, negative_prompt="") -> torch.Tensor:
         """[2, 77, D] (uncond, cond), cached per prompt pair."""
@@ -198,13 +204,79 @@ class StableDiffusion:
         return self.vae.encode(x, eps).float()
 
     @torch.no_grad()
-    def unet_noise_pred(self, latents_in, t, text_embeddings):
-        """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction."""
+    def unet_noise_pred(self, latents_in, t, text_embeddings, capture_attn: bool = False):
+        """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction;
+        with `capture_attn`, (prediction, captured (tag, [2B, Q, K]) maps)."""
         x = latents_in.to(self.unet_dtype)
         if self.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
-        out = self.unet(x, t, text_embeddings.to(self.unet_dtype))
-        return out.float()
+        store = [] if capture_attn else None
+        out = self.unet(x, t, text_embeddings.to(self.unet_dtype), attn_store=store).float()
+        return (out, store) if capture_attn else out
+
+    def _draws(self, given, batch: int, generator, dev):
+        """A [B, 4, h, w] draw: `given` ([B, h, w, 4] NHWC) replayed, else
+        standard normal from `generator`."""
+        if given is not None:
+            return given.to(dev, torch.float32).permute(0, 3, 1, 2)
+        return torch.randn(self.latent_shape(batch), generator=generator, device=dev)
+
+    def resize_to_image_size(self, imgs_nhwc: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> [B, 3, S, S] at SD's image size, bilinear as
+        jax.image.resize does it (antialiased when shrinking)."""
+        size = self.config.image_size
+        return F.interpolate(
+            imgs_nhwc.permute(0, 3, 1, 2), size=(size, size), mode="bilinear", antialias=True, align_corners=False
+        )
+
+    @torch.no_grad()
+    def attention_maps(
+        self,
+        text_embeddings: torch.Tensor,  # [2, 77, D]
+        pred_rgb: torch.Tensor,  # [1, H, W, 3] in [0, 1]
+        t,
+        token_indices: Sequence[int],
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,  # [1, h, w, 4] NHWC
+        vae_eps: Optional[torch.Tensor] = None,  # [1, h, w, 4] NHWC
+    ) -> torch.Tensor:
+        """One noised CFG UNet pass with attention capture: [B, H, W] maps of
+        the tokens at `token_indices`, at pred_rgb's size. `noise` and
+        `vae_eps` replay given draws; otherwise they come from `generator`."""
+        from voxe_tpu_torch.models.sd.cross_attn import aggregate_token_maps
+
+        orig_h, orig_w = pred_rgb.shape[1:3]
+        dev = pred_rgb.device
+        eps = self._draws(vae_eps, 1, generator, dev)
+        noise = self._draws(noise, 1, generator, dev)
+        latents = self.encode_imgs(self.resize_to_image_size(pred_rgb), eps)
+        latents_noisy = self.scheduler.add_noise(latents, noise, t)
+        _, store = self.unet_noise_pred(
+            torch.cat([latents_noisy] * 2, dim=0), t, text_embeddings, capture_attn=True
+        )
+        return aggregate_token_maps(store, token_indices, orig_h, orig_w)
+
+    def get_attn_map(
+        self,
+        prompt: str,
+        pred_rgb: torch.Tensor,  # [1, H, W, 3] in [0, 1]
+        timestamp: int = 0,
+        indices_to_fetch=(7,),
+        *,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[torch.Tensor] = None,
+        vae_eps: Optional[torch.Tensor] = None,
+    ):
+        """Per-token 2D attention maps of `prompt` on the frame at its size,
+        and the t used: `timestamp`, or with `timestamp <= 0` one drawn from
+        the schedule with `generator`."""
+        t = timestamp if timestamp > 0 else self.sample_timestep(generator)
+        maps = self.attention_maps(
+            self.get_text_embeds(prompt, ""), pred_rgb, t, list(indices_to_fetch),
+            generator=generator, noise=noise, vae_eps=vae_eps,
+        )
+        return list(maps.unbind(0)), int(t)
 
     def sds_loss(
         self,
@@ -220,24 +292,11 @@ class StableDiffusion:
         """The SDS "loss" whose gradient w.r.t. pred_rgb is the score
         distillation gradient. `noise` and `vae_eps` replay given draws;
         otherwise they are drawn from `generator`."""
-        size = self.config.image_size
         batch = pred_rgb.shape[0]
-        shape = self.latent_shape(batch)
         dev = pred_rgb.device
-
-        def draw(given):
-            if given is not None:
-                return given.to(dev, torch.float32).permute(0, 3, 1, 2)
-            return torch.randn(shape, generator=generator, device=dev)
-
-        eps = draw(vae_eps)
-        noise = draw(noise)
-        # jax.image.resize "bilinear" antialiases when it shrinks
-        x = pred_rgb.permute(0, 3, 1, 2)
-        pred_512 = F.interpolate(
-            x, size=(size, size), mode="bilinear", antialias=True, align_corners=False
-        )
-        latents = self.encode_imgs(pred_512, eps)
+        eps = self._draws(vae_eps, batch, generator, dev)
+        noise = self._draws(noise, batch, generator, dev)
+        latents = self.encode_imgs(self.resize_to_image_size(pred_rgb), eps)
 
         latents_ng = latents.detach()
         latents_noisy = self.scheduler.add_noise(latents_ng, noise, t)

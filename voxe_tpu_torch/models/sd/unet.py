@@ -8,10 +8,16 @@ NUMBER OF HEADS, as in the HF config field.
 Self-attention goes to the port's hand-written flash kernel exactly where
 voxe_tpu's `_flash_self_attention_enabled` admits the shape (q_len >= 2048,
 q_len % 512 == 0, head_dim in {64, 128}); that is SD 2.x's 64x64 level, five
-calls per UNet pass. Every other attention — cross-attention and the 32x32
-level — is a plain matmul + softmax. The gate is the JAX package's, kept
-as it is; re-deciding it on the card is later work. The attention-capture
-and probs-edit paths are not ported yet.
+calls per UNet pass. Every other attention — cross-attention, the 32x32
+level, and SD 1.x's 64x64 level (head_dim 40) — is a plain matmul +
+softmax. The gate is the JAX package's, kept as it is; re-deciding it on
+the card is later work.
+
+Attention capture (the JAX package's `sow` into "attn_maps"): given a list
+`attn_store`, each cross-attention of a transformer tagged "down", "mid" or
+"up" takes the probs path and appends (the tag, head-averaged [B, Q, K]
+f32 probabilities) to it, in call order. The probs-edit hook of the
+prompt-to-prompt controllers is not ported yet.
 """
 from __future__ import annotations
 
@@ -66,16 +72,19 @@ class ResnetBlock2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, query_dim: int, context_dim: int, num_heads: int):
+    def __init__(self, query_dim: int, context_dim: int, num_heads: int, capture: str = ""):
         super().__init__()
         self.num_heads = num_heads
+        self.capture = capture  # "" or the capture tag ("down" / "mid" / "up")
         self.to_q = nn.Linear(query_dim, query_dim, bias=False)
         self.to_k = nn.Linear(context_dim, query_dim, bias=False)
         self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out_0 = nn.Linear(query_dim, query_dim)
 
-    def forward(self, hidden, context=None):
-        """hidden [B, Q, C]; context [B, K, Dc] (None -> self-attention)."""
+    def forward(self, hidden, context=None, attn_store=None):
+        """hidden [B, Q, C]; context [B, K, Dc] (None -> self-attention).
+        With `attn_store` (a list) and a capture tag, the head-averaged f32
+        probabilities are appended to it."""
         B, Q, C = hidden.shape
         head_dim = C // self.num_heads
         is_cross = context is not None
@@ -86,7 +95,11 @@ class CrossAttention(nn.Module):
         k = self.to_k(context).reshape(B, K, self.num_heads, head_dim)
         v = self.to_v(context).reshape(B, K, self.num_heads, head_dim)
         scale = 1.0 / math.sqrt(head_dim)
-        if not is_cross and flash_self_attention_enabled(Q, head_dim):
+        if attn_store is not None and self.capture:
+            probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, dim=-1)
+            attn_store.append((self.capture, probs.mean(dim=1)))
+            out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+        elif not is_cross and flash_self_attention_enabled(Q, head_dim):
             out = flash_attention(q, k, v, scale)
         else:
             out = flash_attention_reference(q, k, v, scale)
@@ -105,34 +118,34 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, context_dim: int, num_heads: int):
+    def __init__(self, dim: int, context_dim: int, num_heads: int, capture: str = ""):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = CrossAttention(dim, dim, num_heads)
+        self.attn1 = CrossAttention(dim, dim, num_heads)  # self-attention: never captured
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = CrossAttention(dim, context_dim, num_heads)
+        self.attn2 = CrossAttention(dim, context_dim, num_heads, capture)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, hidden, context):
+    def forward(self, hidden, context, attn_store=None):
         hidden = hidden + self.attn1(self.norm1(hidden))
-        hidden = hidden + self.attn2(self.norm2(hidden), context)
+        hidden = hidden + self.attn2(self.norm2(hidden), context, attn_store)
         return hidden + self.ff(self.norm3(hidden))
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, channels: int, context_dim: int, num_heads: int, groups: int = 32):
+    def __init__(self, channels: int, context_dim: int, num_heads: int, groups: int = 32, capture: str = ""):
         super().__init__()
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = BasicTransformerBlock(channels, context_dim, num_heads)
+        self.transformer_blocks_0 = BasicTransformerBlock(channels, context_dim, num_heads, capture)
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context):
+    def forward(self, x, context, attn_store=None):
         B, C, H, W = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks_0(h, context)
+        h = self.transformer_blocks_0(h, context, attn_store)
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
 
@@ -161,7 +174,7 @@ class UNet2DConditionModel(nn.Module):
                 if is_cross:
                     self.add_module(
                         f"down_{level}_attn_{block}",
-                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g),
+                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="down"),
                     )
                 skip_chans.append(ch)
             if level != n_levels - 1:
@@ -171,7 +184,7 @@ class UNet2DConditionModel(nn.Module):
                 skip_chans.append(ch)
 
         self.mid_resnet_0 = ResnetBlock2D(cin, cin, temb_dim, g)
-        self.mid_attn = Transformer2D(cin, ctx, cfg.attention_head_dim[-1], g)
+        self.mid_attn = Transformer2D(cin, ctx, cfg.attention_head_dim[-1], g, capture="mid")
         self.mid_resnet_1 = ResnetBlock2D(cin, cin, temb_dim, g)
 
         for up_idx in range(n_levels):
@@ -187,7 +200,7 @@ class UNet2DConditionModel(nn.Module):
                 if is_cross:
                     self.add_module(
                         f"up_{up_idx}_attn_{block}",
-                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g),
+                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="up"),
                     )
             if up_idx != n_levels - 1:
                 self.add_module(f"up_{up_idx}_upsample", nn.Conv2d(ch, ch, 3, padding=1))
@@ -195,8 +208,9 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(g, cin, eps=1e-5)
         self.conv_out = nn.Conv2d(cin, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
-        """sample [B, in_ch, H, W]; timesteps scalar or [B]; context [B, T, Dc]."""
+    def forward(self, sample, timesteps, encoder_hidden_states, attn_store=None):
+        """sample [B, in_ch, H, W]; timesteps scalar or [B]; context [B, T, Dc].
+        `attn_store`: a list that receives the captured cross-attention maps."""
         cfg = self.config
         n_levels = len(cfg.block_out_channels)
         ctx = encoder_hidden_states
@@ -216,14 +230,14 @@ class UNet2DConditionModel(nn.Module):
             for block in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{level}_resnet_{block}")(h, temb)
                 if is_cross:
-                    h = getattr(self, f"down_{level}_attn_{block}")(h, ctx)
+                    h = getattr(self, f"down_{level}_attn_{block}")(h, ctx, attn_store)
                 skips.append(h)
             if level != n_levels - 1:
                 h = getattr(self, f"down_{level}_downsample")(h)
                 skips.append(h)
 
         h = self.mid_resnet_0(h, temb)
-        h = self.mid_attn(h, ctx)
+        h = self.mid_attn(h, ctx, attn_store)
         h = self.mid_resnet_1(h, temb)
 
         for up_idx in range(n_levels):
@@ -232,7 +246,7 @@ class UNet2DConditionModel(nn.Module):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{up_idx}_resnet_{block}")(h, temb)
                 if is_cross:
-                    h = getattr(self, f"up_{up_idx}_attn_{block}")(h, ctx)
+                    h = getattr(self, f"up_{up_idx}_attn_{block}")(h, ctx, attn_store)
             if up_idx != n_levels - 1:
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
                 h = getattr(self, f"up_{up_idx}_upsample")(h)

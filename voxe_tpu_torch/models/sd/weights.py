@@ -28,7 +28,7 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Callable, Dict, List, Mapping, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -353,10 +353,15 @@ def from_flax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def voxel_grid_from_numpy(
-    densities: np.ndarray, features: np.ndarray, config: VoxelGridConfig, device="cuda"
+    densities: np.ndarray, features: np.ndarray, config: VoxelGridConfig, device="cuda",
+    attn: Optional[np.ndarray] = None, orig_densities: Optional[np.ndarray] = None,
 ) -> VoxelGrid:
-    """A float32 VoxelGrid on `device` from numpy arrays."""
+    """A float32 VoxelGrid on `device` from numpy arrays (attention field and
+    frozen densities carried across when given)."""
     def to(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+        return None if x is None else torch.as_tensor(np.asarray(x, np.float32), device=device)
 
-    return VoxelGrid(densities=to(densities), features=to(features), config=config)
+    return VoxelGrid(
+        densities=to(densities), features=to(features), config=config,
+        attn=to(attn), orig_densities=to(orig_densities),
+    )

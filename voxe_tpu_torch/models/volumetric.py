@@ -2,9 +2,10 @@
 (counterpart of voxe_tpu/models/volumetric.py).
 
 Checkpoints use the JAX package's layout exactly: one npz archive holding
-`_densities` / `_features` as float32 arrays and a `__meta__` JSON document
-(format "voxe_tpu.volumetric_model.v1": grid config, render config, extra
-info), so a grid saved by either package loads in the other.
+`_densities` / `_features` (and, for the refinement stage's grids, `_attn` /
+`_orig_densities`) as float32 arrays and a `__meta__` JSON document (format
+"voxe_tpu.volumetric_model.v1": grid config, render config, extra info), so
+a grid saved by either package loads in the other.
 
 The full-image render is the exact renderer in a Python loop over fixed
 chunks of `parallel_rays_chunk_size` rays, the last chunk padded with
@@ -12,8 +13,9 @@ zero rays (as the JAX `lax.map` does), under `torch.no_grad()`; with
 `use_shear_warp=True` it is the shear-warp screen render instead, except for
 a camera inside the grid's AABB along its marching axis, which the
 factorization cannot render: that pose goes to the exact renderer, with a
-warning, as in the JAX package. Not ported yet: the camera-path renders and
-the attention-channel renders.
+warning, as in the JAX package. `attn=True` renders the attention field
+instead of the colour, on either path. Not ported yet: the camera-path
+renders.
 """
 from __future__ import annotations
 
@@ -28,7 +30,11 @@ import torch
 
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig
 from voxe_tpu_torch.render.accumulate import RenderOut
-from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_sh_voxel_grid
+from voxe_tpu_torch.render.interface import (
+    SHVoxGridRenderConfig,
+    render_sh_voxel_grid,
+    render_sh_voxel_grid_attn,
+)
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.logging import log
@@ -60,19 +66,33 @@ class VolumetricModel:
         cfg = self.render_config.replace(**config_overrides) if config_overrides else self.render_config
         return render_sh_voxel_grid(self.grid, rays, cfg, generator=generator)
 
+    def render_rays_attn(
+        self,
+        rays: Rays,
+        generator: Optional[torch.Generator] = None,
+        use_orig_densities: bool = False,
+        **config_overrides,
+    ) -> RenderOut:
+        """Differentiable render of the attention field along flat rays."""
+        cfg = self.render_config.replace(**config_overrides) if config_overrides else self.render_config
+        return render_sh_voxel_grid_attn(self.grid, rays, cfg, generator=generator, use_orig_densities=use_orig_densities)
+
     @torch.no_grad()
     def render(
         self,
         camera_intrinsics: CameraIntrinsics,
         pose: CameraPose,
+        attn: bool = False,
+        use_orig_densities: bool = False,
         **config_overrides,
     ) -> RenderOut:
         """Full image with the exact renderer: no jitter, AABB-bounded
         sampling and `render_num_samples_per_ray` samples unless overridden.
         `use_shear_warp=True` takes the shear-warp screen render instead
         (`shear_warp_base_res` overrides its square base side, by default
-        twice the screen's long side). Returns RenderOut with [H, W, C]
-        leaves on the grid's device."""
+        twice the screen's long side). `attn` renders the attention field
+        (over the frozen densities with `use_orig_densities`). Returns
+        RenderOut with [H, W, C] leaves on the grid's device."""
         use_shear_warp = config_overrides.pop("use_shear_warp", False)
         shear_warp_base_res = config_overrides.pop("shear_warp_base_res", None)
         if use_shear_warp:
@@ -86,7 +106,10 @@ class VolumetricModel:
                        if k not in ("optimized_sampling", "num_samples_per_ray")},
                 )
                 base_hw = (int(shear_warp_base_res),) * 2 if shear_warp_base_res else None
-                return render_shear_warp_to_screen(self.grid, pose, camera_intrinsics, cfg, base_hw=base_hw)
+                return render_shear_warp_to_screen(
+                    self.grid, pose, camera_intrinsics, cfg, base_hw=base_hw,
+                    attn_mode=attn, use_orig_densities=use_orig_densities,
+                )
             log.warning(
                 "shear-warp render: camera is inside the grid AABB along its marching axis — "
                 "rendering this pose with the exact renderer"
@@ -103,7 +126,7 @@ class VolumetricModel:
         dev = self.grid.densities.device
         rays = flatten_rays(cast_rays(camera_intrinsics, pose.rotation, pose.translation, device=dev))
         height, width = camera_intrinsics.height, camera_intrinsics.width
-        out = _chunked_render(self.grid, rays, cfg, height * width)
+        out = _chunked_render(self.grid, rays, cfg, height * width, attn, use_orig_densities)
         reshape = lambda t: t.reshape(height, width, -1)
         return RenderOut(
             colour=reshape(out.colour),
@@ -115,7 +138,10 @@ class VolumetricModel:
         save_volumetric_model(self, Path(path), extra_info)
 
 
-def _chunked_render(grid: VoxelGrid, rays: Rays, config: SHVoxGridRenderConfig, num_rays: int) -> RenderOut:
+def _chunked_render(
+    grid: VoxelGrid, rays: Rays, config: SHVoxGridRenderConfig, num_rays: int,
+    attn: bool = False, use_orig_densities: bool = False,
+) -> RenderOut:
     chunk = min(config.parallel_rays_chunk_size, num_rays)
     num_chunks = -(-num_rays // chunk)
     padded = num_chunks * chunk
@@ -124,10 +150,12 @@ def _chunked_render(grid: VoxelGrid, rays: Rays, config: SHVoxGridRenderConfig, 
         return torch.cat([x, x.new_zeros((padded - num_rays, x.shape[-1]))], dim=0)
 
     origins, directions = pad(rays.origins.contiguous()), pad(rays.directions.contiguous())
-    outs = [
-        render_sh_voxel_grid(grid, Rays(origins[i : i + chunk], directions[i : i + chunk]), config)
-        for i in range(0, padded, chunk)
-    ]
+    def render(r):
+        if attn:
+            return render_sh_voxel_grid_attn(grid, r, config, use_orig_densities=use_orig_densities)
+        return render_sh_voxel_grid(grid, r, config)
+
+    outs = [render(Rays(origins[i : i + chunk], directions[i : i + chunk])) for i in range(0, padded, chunk)]
     cat = lambda ts: torch.cat(ts, dim=0)[:num_rays]
     return RenderOut(
         colour=cat([o.colour for o in outs]),
@@ -159,6 +187,10 @@ def save_volumetric_model(
         "_densities": grid.densities.detach().to("cpu", torch.float32).numpy(),
         "_features": grid.features.detach().to("cpu", torch.float32).numpy(),
     }
+    for name in ("attn", "orig_densities"):
+        t = getattr(grid, name)
+        if t is not None:
+            arrays[f"_{name}"] = t.detach().to("cpu", torch.float32).numpy()
     info = dict(model.extra_info)
     info.update(extra_info or {})
     render_cfg = dataclasses.asdict(model.render_config)
@@ -174,17 +206,27 @@ def save_volumetric_model(
     path.write_bytes(buf.getvalue())
 
 
-def load_volumetric_model(path: Path, device="cuda") -> Tuple[VolumetricModel, Dict[str, Any]]:
-    """Load a checkpoint written by either package onto `device`.
-    Returns (model, extra_info). A checkpoint with attention channels raises:
-    they come with the refinement slice."""
+def load_volumetric_model(
+    path: Path, device="cuda", with_attn: bool = False
+) -> Tuple[VolumetricModel, Dict[str, Any]]:
+    """Load a checkpoint written by either package onto `device`, with its
+    attention field and frozen densities when it has them. `with_attn` gives
+    a checkpoint without an attention field one channel of -20 (the JAX
+    package's injection). Returns (model, extra_info)."""
+    def read(data, name):
+        if name not in data:
+            return None
+        return torch.from_numpy(np.array(data[name], np.float32)).to(device)
+
     with np.load(Path(path), allow_pickle=False) as data:
         meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
-        if "_attn" in data or "_orig_densities" in data:
-            raise NotImplementedError("attention-channel grids are not ported yet")
-        densities = torch.from_numpy(np.array(data["_densities"], np.float32)).to(device)
-        features = torch.from_numpy(np.array(data["_features"], np.float32)).to(device)
-    grid = VoxelGrid(densities, features, VoxelGridConfig.from_json_dict(meta["grid_config"]))
+        densities, features = read(data, "_densities"), read(data, "_features")
+        attn, orig = read(data, "_attn"), read(data, "_orig_densities")
+    if with_attn and attn is None:
+        attn = torch.full_like(densities, -20.0)
+    grid = VoxelGrid(
+        densities, features, VoxelGridConfig.from_json_dict(meta["grid_config"]), attn=attn, orig_densities=orig
+    )
     rc = dict(meta["render_config"])
     rc["camera_bounds"] = CameraBounds(*[float(v) for v in rc["camera_bounds"]])
     extra_info = meta.get(EXTRA_INFO, {})

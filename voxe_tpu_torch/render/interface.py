@@ -1,6 +1,6 @@
 """Render configuration and the exact SH-voxel-grid render procedure
 (counterpart of voxe_tpu/render/interface.py: sampler -> point processor ->
-accumulator)."""
+accumulator), for the colour and for the attention channel."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,10 @@ import torch
 
 from voxe_tpu_torch.grid.voxels import VoxelGrid
 from voxe_tpu_torch.render.accumulate import RenderOut, accumulate_radiance_density_on_rays
-from voxe_tpu_torch.render.process import process_points_with_sh_voxel_grid
+from voxe_tpu_torch.render.process import (
+    process_points_with_sh_voxel_grid,
+    process_points_with_sh_voxel_grid_attn,
+)
 from voxe_tpu_torch.render.rays import Rays, flatten_rays
 from voxe_tpu_torch.render.sample import (
     sample_aabb_bound_uniform_points_on_rays,
@@ -92,6 +95,35 @@ def render_sh_voxel_grid(
         stochastic_density_noise_std=config.stochastic_density_noise_std,
         white_bkgd=config.white_bkgd,
         background_value=1.0,
+        extra_debug_info=extra_debug_info,
+        generator=generator,
+    )
+
+
+def render_sh_voxel_grid_attn(
+    voxel_grid: VoxelGrid,
+    rays: Rays,
+    config: SHVoxGridRenderConfig,
+    generator: Optional[torch.Generator] = None,
+    use_orig_densities: bool = False,
+    extra_debug_info: bool = False,
+    t_rand: Optional[torch.Tensor] = None,
+) -> RenderOut:
+    """Render the grid's attention channel, composited on black. As in the
+    JAX package, `config.use_fused_kernel` applies to the colour render only:
+    this path always takes the plain compositor."""
+    rays = flatten_rays(rays)
+    sampled = _sample(voxel_grid, rays, config, generator, t_rand)
+    processed = process_points_with_sh_voxel_grid_attn(
+        sampled, rays, voxel_grid, render_diffuse=config.render_diffuse, use_orig_densities=use_orig_densities
+    )
+    return accumulate_radiance_density_on_rays(
+        processed,
+        sampled.depths,
+        rays,
+        stochastic_density_noise_std=config.stochastic_density_noise_std,
+        white_bkgd=config.white_bkgd,
+        background_value=0.0,
         extra_debug_info=extra_debug_info,
         generator=generator,
     )

@@ -1,12 +1,13 @@
 """Point processing: voxel-grid query + SH shading at sampled ray points
-(counterpart of voxe_tpu/render/process.py, SH grid only)."""
+(counterpart of voxe_tpu/render/process.py: the SH grid and its attention
+channel)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
-from voxe_tpu_torch.grid.voxels import VoxelGrid, grid_query, test_inside_volume
+from voxe_tpu_torch.grid.voxels import VoxelGrid, grid_query, grid_query_attn, test_inside_volume
 from voxe_tpu_torch.render.rays import Rays
 from voxe_tpu_torch.render.sample import SampledPointsOnRays
 from voxe_tpu_torch.render.sh import evaluate_spherical_harmonics
@@ -54,3 +55,18 @@ def process_points_with_sh_voxel_grid(
     return _shade_and_mask(
         voxel_grid, flat_points, interpolated, rays, num_samples, NUM_COLOUR_CHANNELS, render_diffuse
     )
+
+
+def process_points_with_sh_voxel_grid_attn(
+    sampled_points: SampledPointsOnRays,
+    rays: Rays,
+    voxel_grid: VoxelGrid,
+    render_diffuse: bool = False,
+    use_orig_densities: bool = False,
+) -> torch.Tensor:
+    """[N, S, 1+1]: per-sample (attention logit, raw density), the attention
+    shaded as one SH channel."""
+    num_samples = sampled_points.points.shape[1]
+    flat_points = sampled_points.points.reshape(-1, 3)
+    interpolated = grid_query_attn(voxel_grid, flat_points, use_orig_densities=use_orig_densities)
+    return _shade_and_mask(voxel_grid, flat_points, interpolated, rays, num_samples, 1, render_diffuse)

@@ -26,12 +26,15 @@ geometry, `screen_to_base` and the target warp `warp_image_to_base`.
 
 `diffuse_only` shades the colour as the degree-0 (diffuse) version, and
 `background_value` is what an empty ray composites onto with white_bkgd.
+`attn_mode` renders the grid's attention field in place of the colour: its
+C channels, each shaded at degree 0, composite against the density field
+(the frozen copy with `use_orig_densities`) on both tails, so the
+refinement stage's edit and object grids render as one two-channel pass.
 `render_shear_warp_to_screen` finishes the factorization for screen-space
 output: the base composite, then a bilinear gather at each screen pixel's
 base coordinates (`sample_base_image`).
 
-Not ported yet: density noise (raises) and the attention render modes of
-the refinement stage.
+Not ported yet: density noise (raises).
 """
 from __future__ import annotations
 
@@ -107,6 +110,14 @@ def _interp_matrices(src: torch.Tensor, size: int) -> torch.Tensor:
     return torch.clamp(1.0 - torch.abs(src[..., None] - p), min=0.0)
 
 
+def _shade_channels(c1: int, num_shade_channels: Optional[int]) -> int:
+    """Shaded channels of a [..., C+1] volume: the attention field's count
+    when given, else 3 colour channels (1 for a one-feature volume)."""
+    if num_shade_channels is not None:
+        return num_shade_channels
+    return NUM_COLOUR_CHANNELS if c1 > 2 else 1
+
+
 def _streamed_composite(
     vol: torch.Tensor,  # [S, A, B, C+1] pre-activated (features..., density)
     Wa: torch.Tensor,  # [S, U, A] f32 hat weights
@@ -120,13 +131,15 @@ def _streamed_composite(
     with_diffuse: bool = False,
     background_value: float = 1.0,
     diffuse_only: bool = False,
+    num_shade_channels: Optional[int] = None,
 ) -> RenderOut:
     """Slice-streamed resample + composite; every per-sample tensor is
     slice-major ([S, N] / [S, U, V, C]). With `flip_k` the s axis runs in
     volume order while marching runs s descending: the triangular matrix and
     the deltas flip instead of the volume. `with_diffuse` also composites the
     degree-0 (diffuse) shading into extra["diffuse_colour"]; `diffuse_only`
-    shades the colour itself at degree 0."""
+    shades the colour itself at degree 0. `num_shade_channels` overrides the
+    channel count (the attention field's C; 3 or 1 by default)."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -158,7 +171,7 @@ def _streamed_composite(
 
     # ---- pass 2: blockwise weighted shading
     feats_pre = vol[..., :-1]
-    num_channels = NUM_COLOUR_CHANNELS if C1 > 2 else 1
+    num_channels = _shade_channels(C1, num_shade_channels)
     n_coeffs = (C1 - 1) // num_channels
     sh_degree = int(math.isqrt(n_coeffs)) - 1
     w_dt = weights.to(dt)
@@ -224,6 +237,7 @@ def _monolithic_composite(
     with_diffuse: bool,
     background_value: float = 1.0,
     diffuse_only: bool = False,
+    num_shade_channels: Optional[int] = None,
 ) -> RenderOut:
     """Resample every slice onto the base lattice ([U*V, S, C+1]), shade,
     and composite with accumulate(final_delta="slab"), through the fused
@@ -240,7 +254,7 @@ def _monolithic_composite(
     dens = ACTIVATIONS[grid_config.density_postactivation](resampled[..., -1].float())
     dens = torch.where(inside, dens, torch.zeros((), device=dens.device))
 
-    num_channels = NUM_COLOUR_CHANNELS if C1 > 2 else 1
+    num_channels = _shade_channels(C1, num_shade_channels)
     sh_coeffs = feats.reshape(N, S, num_channels, -1)
     sh_degree = int(math.isqrt(sh_coeffs.shape[-1])) - 1
     if diffuse_only:  # shade the colour as the degree-0 diffuse version
@@ -279,6 +293,7 @@ def _render_canonical(
     stream_composite: bool = True,
     background_value: float = 1.0,
     diffuse_only: bool = False,
+    num_shade_channels: Optional[int] = None,
 ):
     """Core shear-warp in canonical orientation. Returns (RenderOut over
     [U*V] base pixels, dirs, lo, hi)."""
@@ -337,6 +352,7 @@ def _render_canonical(
         out = _streamed_composite(
             vol, Wa, Wb, t_sn, dirs, inside_sn, grid_config, config.white_bkgd, flip_k,
             with_diffuse=with_diffuse, background_value=background_value, diffuse_only=diffuse_only,
+            num_shade_channels=num_shade_channels,
         )
     else:
         inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S)
@@ -344,6 +360,7 @@ def _render_canonical(
         out = _monolithic_composite(
             vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse,
             background_value=background_value, diffuse_only=diffuse_only,
+            num_shade_channels=num_shade_channels,
         )
     return out, dirs, lo, hi
 
@@ -356,6 +373,8 @@ def render_shear_warp(
     with_diffuse: bool = False,
     background_value: float = 1.0,
     diffuse_only: bool = False,
+    attn_mode: bool = False,
+    use_orig_densities: bool = False,
 ) -> Tuple[RenderOut, BaseImageGeometry]:
     """Render the base-plane image of `voxel_grid` seen from `pose`.
 
@@ -365,7 +384,10 @@ def render_shear_warp(
     extra["diffuse_colour"] from the same resample; `diffuse_only` renders
     the degree-0 shading as the colour. With `config.white_bkgd`, empty rays
     composite onto `background_value`. `config.use_fused_kernel` selects the
-    monolithic tail, where the compositing kernel lives."""
+    monolithic tail, where the compositing kernel lives. `attn_mode` renders
+    the attention field's C channels (each at degree 0) as the colour, over
+    the frozen densities with `use_orig_densities`; the refinement stage
+    passes `background_value=0.0`."""
     if with_diffuse and diffuse_only:
         raise ValueError("with_diffuse renders both colours; diffuse_only renders the degree-0 one as the colour")
     stream_composite = not getattr(config, "use_fused_kernel", False)
@@ -374,10 +396,17 @@ def render_shear_warp(
     grid_dims = tuple(int(d) for d in voxel_grid.grid_dims)
 
     cfg = voxel_grid.config
-    pre_density = ACTIVATIONS[cfg.density_preactivation](
-        voxel_grid.densities * cfg.expected_density_scale
-    )
-    pre_features = ACTIVATIONS[cfg.feature_preactivation](voxel_grid.features)
+    densities, features, num_shade_channels = voxel_grid.densities, voxel_grid.features, None
+    if attn_mode:
+        if voxel_grid.attn is None:
+            raise ValueError("attn_mode: grid has no attn channel")
+        if use_orig_densities:
+            if voxel_grid.orig_densities is None:
+                raise ValueError("use_orig_densities: grid has no frozen orig_densities")
+            densities = voxel_grid.orig_densities
+        features, num_shade_channels = voxel_grid.attn, int(voxel_grid.attn.shape[-1])
+    pre_density = ACTIVATIONS[cfg.density_preactivation](densities * cfg.expected_density_scale)
+    pre_features = ACTIVATIONS[cfg.feature_preactivation](features)
     unified = torch.cat([pre_features, pre_density], dim=-1)
     if cfg.gather_dtype == "bfloat16":
         unified = unified.to(torch.bfloat16)
@@ -412,6 +441,7 @@ def render_shear_warp(
         flip_k=stream_composite and not positive,
         with_diffuse=with_diffuse, stream_composite=stream_composite,
         background_value=background_value, diffuse_only=diffuse_only,
+        num_shade_channels=num_shade_channels,
     )
     geom = BaseImageGeometry(eye=eye_w, dirs=dirs_w, lo=lo2, hi=hi2, perm_index=branch)
     return out, geom
@@ -686,21 +716,26 @@ def render_shear_warp_to_screen(
     config,
     base_hw: Optional[Tuple[int, int]] = None,
     background_value: Optional[float] = None,
+    attn_mode: bool = False,
+    use_orig_densities: bool = False,
 ) -> RenderOut:
     """Screen-space render: the shear-warp base composite, then
     `sample_base_image` at `screen_to_base` coordinates. Returns RenderOut
     with [H, W, C] leaves. `base_hw` defaults to a square lattice at twice
     the screen's long side; `config.render_diffuse` renders the colour as
-    the degree-0 version (shaded once, through `diffuse_only`)."""
+    the degree-0 version (shaded once, through `diffuse_only`). `attn_mode`
+    renders the attention field (on black unless `background_value` says
+    otherwise)."""
     if base_hw is None:
         side = 2 * max(int(intrinsics.height), int(intrinsics.width))
         base_hw = (side, side)
     base_hw = tuple(base_hw)
     if background_value is None:
-        background_value = 1.0 if config.white_bkgd else 0.0
+        background_value = 0.0 if attn_mode else (1.0 if config.white_bkgd else 0.0)
     out, geom = render_shear_warp(
         voxel_grid, pose, config, base_hw=base_hw, background_value=background_value,
-        diffuse_only=bool(getattr(config, "render_diffuse", False)),
+        diffuse_only=bool(getattr(config, "render_diffuse", False)) and not attn_mode,
+        attn_mode=attn_mode, use_orig_densities=use_orig_densities,
     )
     coords = screen_to_base(pose, intrinsics, geom, voxel_grid, base_hw).to(out.colour.device)
 

@@ -125,15 +125,22 @@ def make_adam(grid: VoxelGrid, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam([grid.densities, grid.features], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def apply_lr_schedule(optimizer: torch.optim.Optimizer, lr_schedule) -> None:
+    """Set the lr of `lr_schedule` (None: leave it) for the optimizer's count
+    of earlier updates, which is what optax schedules read."""
+    if lr_schedule is None:
+        return
+    first = optimizer.param_groups[0]["params"][0]
+    count = int(optimizer.state[first]["step"]) if first in optimizer.state else 0
+    for group in optimizer.param_groups:
+        group["lr"] = lr_schedule(count)
+
+
 def optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metrics: dict, lr_schedule) -> dict:
     """Backward of `total`, the lr of the schedule, one update; returns
     `metrics` with total_loss."""
     total.backward()
-    if lr_schedule is not None:  # optax schedules read the count of earlier updates
-        first = optimizer.param_groups[0]["params"][0]
-        count = int(optimizer.state[first]["step"]) if first in optimizer.state else 0
-        for group in optimizer.param_groups:
-            group["lr"] = lr_schedule(count)
+    apply_lr_schedule(optimizer, lr_schedule)
     optimizer.step()
     metrics["total_loss"] = total.detach()
     return metrics

@@ -1,10 +1,11 @@
 """Rendered feedback panels of a training run (counterpart of
-voxe_tpu/viz/static.py: `postprocess_depth_map` and
-`visualize_sh_vox_grid_vol_mod_rendered_feedback`).
+voxe_tpu/viz/static.py: `postprocess_depth_map`,
+`visualize_sh_vox_grid_vol_mod_rendered_feedback` and its attention twin).
 
-PNGs are written with Pillow, and the depth colormap is matplotlib's
-"magma" resampled to 1024 entries, looked up here from its listed values
-(`_magma.py`), so neither imageio nor matplotlib is needed.
+PNGs are written with Pillow; the depth colormap is matplotlib's "magma"
+resampled to 1024 entries, looked up here from its listed values
+(`_magma.py`), and the attention colormap is matplotlib's "jet" (`_jet.py`),
+so neither imageio nor matplotlib is needed.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from PIL import Image
 
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose, adjust_dynamic_range, to8b
 from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
+from voxe_tpu_torch.viz._jet import JET_256
 from voxe_tpu_torch.viz._magma import MAGMA_256
 
 
@@ -101,3 +103,25 @@ def visualize_sh_vox_grid_vol_mod_rendered_feedback(
         Image.fromarray(to8b(_host(out_d.colour))).save(
             feedback_logs_dir / f"{vol_mod_name}_diffuse_iter_{global_step}.png"
         )
+
+
+def visualize_sh_vox_grid_vol_mod_rendered_feedback_attn(
+    vol_mod,
+    vol_mod_name: str,
+    render_feedback_pose: CameraPose,
+    camera_intrinsics: CameraIntrinsics,
+    global_step: int,
+    feedback_logs_dir: Path,
+    use_shear_warp: bool = False,
+) -> None:
+    """Write `<name>_attn_iter_<step>.png`: colour | jet-coloured attention
+    (clipped to [0, 1]) | their 0.55 / 0.45 blend."""
+    overrides = {"use_shear_warp": True} if use_shear_warp else {}
+    rgb = _host(vol_mod.render(camera_intrinsics, render_feedback_pose, **overrides).colour)
+    attn = _host(vol_mod.render(camera_intrinsics, render_feedback_pose, attn=True, **overrides).colour)[..., 0]
+    attn_col = _colormap(JET_256, np.clip(attn, 0, 1))
+    blend = 0.55 * rgb + 0.45 * attn_col
+    panel = np.concatenate([to8b(rgb), to8b(attn_col), to8b(blend)], axis=1)
+    feedback_logs_dir = Path(feedback_logs_dir)
+    feedback_logs_dir.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(panel).save(feedback_logs_dir / f"{vol_mod_name}_attn_iter_{global_step}.png")
