@@ -21,8 +21,20 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      compositing kernel and Adam (2 launches per step), a breakdown and the
      idle share, then the held-out images through the tester (5 launches per
      400^2 image);
-  7. the recon stage ladder end to end through its CLI module (4 stages, a few
-     iterations each), ending in a model_final.pth that loads back;
+  7. recon-cli: the recon stage ladder end to end through its CLI module at
+     its default flags (4 stages of 3 iterations): camera_rays.png, feedback
+     renders at the JAX cadence (2 a stage, 1 compositing launch a render),
+     the held-out test at each stage's end (5 launches a 400^2 image; PSNR,
+     SSIM and LPIPS-VGG on the card, on seeded random weights), the
+     seconds both add to a stage, ending in a model_final.pth that loads
+     back;
+  7a. render-cli-exact: the render CLI on that model_final.pth at its full
+     width (800^2, 512 samples, the exact renderer in chunks of 32,768 rays:
+     20 compositing launches a frame), 8 frames of the turntable: ms per
+     frame, launches per frame, peak memory, the video read back, one
+     frame's device profile;
+  7b. render-cli-shear-warp: the same through the shear-warp screen render
+     (1600^2 base, 1 launch a frame), 36 frames;
   8. sd-weights: SD 2.0 at its published widths with seeded random weights,
      written as an HF snapshot (safetensors: UNet and VAE in bf16, CLIP in
      f32, a byte-level BPE vocab) and loaded back through
@@ -47,7 +59,13 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      at 160^3; then the segment CLI on its attention grids;
  13. edit-refine: the edit CLI with --do_refinement and --post_process_scc,
      2 SDS steps and 2 refinement iterations;
- 14. the `kernels` JSON line, the card line, and the final JSON line.
+ 14. render-attn-cli: the attention render CLI on the refine CLI's edit
+     attention grid at 800^2: the blend on the shear-warp route (2 launches
+     a frame) and the exact route (20: the attention render takes the plain
+     compositor), then --use_sd on the SD 1.4 snapshot, 2 frames;
+ 15. shape-sweep: the compositing kernel against its plain version at every
+     [N, S] it launched in this run that phase 3 did not check;
+ 16. the `kernels` JSON line, the card line, and the final JSON line.
 Every phase's seconds are printed ([phase-seconds]). Imports nothing from
 JAX or the JAX package.
 """
@@ -56,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import struct
 import subprocess
 import sys
@@ -72,10 +91,13 @@ from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
 from voxe_tpu_torch.cli import edit_pretrained_relu_field as edit_cli
 from voxe_tpu_torch.cli import refine_edited_relu_field as refine_cli
+from voxe_tpu_torch.cli import render_sh_based_voxel_grid as render_cli
+from voxe_tpu_torch.cli import render_sh_based_voxel_grid_attn as render_attn_cli
 from voxe_tpu_torch.cli import segment_attn_relu_field as segment_cli
 from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
+from voxe_tpu_torch.models.lpips import build_vgg16_features
 from voxe_tpu_torch.models.sd import cross_attn
 from voxe_tpu_torch.models.sd import weights as sd_weights
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
@@ -94,6 +116,8 @@ from voxe_tpu_torch.train.losses import density_correlation_loss
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, pose_spherical
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid
+from voxe_tpu_torch.viz.animations import render_camera_path_for_volumetric_model
+from voxe_tpu_torch.viz.video import read_mjpeg_avi
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (data sheet, SXM, 700 W)
 H100_BYTES_PER_S = 3.35e12
@@ -213,6 +237,24 @@ def composite_inputs(g, n, s, sigma_max, dev):
     return dens, depths, dirn
 
 
+CHECKED_SHAPES = set()  # [N, S] the compositing kernel was held at
+
+
+def hold_composite(args, name: str) -> float:
+    """The kernel against its plain version on `args`; returns the larger
+    error (weights, acc), failing above COMPOSITE_TOL."""
+    w, acc = comp.composite_weights(*args)
+    torch.cuda.synchronize()
+    wr, ar = comp.composite_weights_reference(*args)
+    ew, ea = float((w - wr).abs().max()), float((acc - ar).abs().max())
+    log("kernel-check", kernel="composite_fwd", case=name, shape=list(args[0].shape), max_abs_err_w=ew,
+        max_abs_err_acc=ea, tol=COMPOSITE_TOL, acc_min=float(acc.min()), acc_max=float(acc.max()))
+    if not (ew <= COMPOSITE_TOL and ea <= COMPOSITE_TOL and torch.isfinite(w).all()):
+        raise AssertionError(f"composite_fwd disagrees with its plain version on {name}: {ew}, {ea}")
+    CHECKED_SHAPES.add(tuple(args[0].shape))
+    return max(ew, ea)
+
+
 def composite_bound_ms(n: int, s: int) -> float:
     """Bytes: read sigma and depth, write w (12 B a sample); read |dir|,
     write acc (8 B a ray). The few flops a sample are far below the byte time."""
@@ -221,12 +263,15 @@ def composite_bound_ms(n: int, s: int) -> float:
 
 def phase_composite_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
-    # every shape a driven path launches at: 160 slices slab-padded to 256
-    # as accumulate pads them, on the recon step's 768^2 base, the edit
-    # step's and the refinement's 384^2 base and the CLIs' 800^2 feedback
-    # base (2x the 400^2 screen); the held-out render chunk; the segment
-    # CLI's exact feedback chunk (the edit model's 512 samples a ray);
-    # ragged; dense (T underflows to 0 within the first ~130 of 512 samples)
+    # the main shapes the driven paths launch at: 160 slices slab-padded to
+    # 256 as accumulate pads them, on the recon step's 768^2 base, the edit
+    # step's and the refinement's 384^2 base, the CLIs' 800^2 feedback base
+    # (2x the 400^2 screen) and the shear-warp turntable's 1600^2 base (2x
+    # its 800^2 screen); the held-out render chunk; the exact chunk at 512
+    # samples a ray (the segment CLI's feedback, the exact turntable);
+    # ragged; dense (T underflows to 0 within the first ~130 of 512
+    # samples). The shape-sweep phase checks every other shape the run
+    # launched.
     def slab_padded(n):
         dens, depths, dirn = composite_inputs(g, n, GRID_RES, 5.0, dev)
         return _pad_samples(dens, depths, "slab")[:2] + (dirn,)
@@ -235,24 +280,15 @@ def phase_composite_kernel(dev) -> dict:
         "recon_step_slab_padded": slab_padded(RECON_BASE * RECON_BASE),
         "edit_step_slab_padded": slab_padded(BASE * BASE),
         "edit_feedback_slab_padded": slab_padded((2 * SCENE) ** 2),
+        "turntable_slab_padded": slab_padded((4 * SCENE) ** 2),
         "heldout_chunk": composite_inputs(g, 32768, 1024, 5.0, dev),
         "exact_feedback_chunk": composite_inputs(g, 32768, 512, 5.0, dev),
         "ragged": composite_inputs(g, 1000, 37, 5.0, dev),
         "dense_underflow": composite_inputs(g, 2048, 512, 50.0, dev),
     }
-    errs = []
-    for name, args in cases.items():
-        w, acc = comp.composite_weights(*args)
-        torch.cuda.synchronize()
-        wr, ar = comp.composite_weights_reference(*args)
-        ew, ea = float((w - wr).abs().max()), float((acc - ar).abs().max())
-        log("kernel-check", kernel="composite_fwd", case=name, shape=list(args[0].shape), max_abs_err_w=ew,
-            max_abs_err_acc=ea, tol=COMPOSITE_TOL, acc_min=float(acc.min()), acc_max=float(acc.max()))
-        if not (ew <= COMPOSITE_TOL and ea <= COMPOSITE_TOL and torch.isfinite(w).all()):
-            raise AssertionError(f"composite_fwd disagrees with its plain version on {name}: {ew}, {ea}")
-        errs.append(max(ew, ea))
+    errs = [hold_composite(args, name) for name, args in cases.items()]
     times = {}
-    for name in ("recon_step_slab_padded", "heldout_chunk"):
+    for name in ("recon_step_slab_padded", "heldout_chunk", "turntable_slab_padded"):
         args = cases[name]
         n, s = args[0].shape
         ms = time_ms(lambda: comp.composite_weights(*args))
@@ -261,6 +297,8 @@ def phase_composite_kernel(dev) -> dict:
         times[name] = (ms, plain_ms, bound)
         log("kernel-time", kernel="composite_fwd", case=name, shape=[n, s], ms=ms, plain_ms=plain_ms,
             bound_ms=bound, share_of_bound=bound / ms, gbytes_per_s=(12.0 * n * s + 8.0 * n) / ms / 1e6)
+    del cases
+    torch.cuda.empty_cache()
     ms, plain_ms, bound = times["recon_step_slab_padded"]
     return dict(
         name="composite_fwd", route="cuda", source="voxe_tpu_torch/csrc/composite_fwd.cu",
@@ -584,24 +622,204 @@ def recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw) -> None:
     log("recon-breakdown", **{f"{k}_ms": v for k, v in med.items()})
 
 
-def phase_recon_cli(workdir: Path) -> None:
-    """The recon CLI module end to end: 4 stages (20^3 .. 160^3 grids on
-    50^2 .. 400^2 images) of a few shear-warp iterations with the fused
-    kernel, ending in model_final.pth."""
+class LogRecords(logging.Handler):
+    """Keeps the port's log records (the editing loop logs its training time)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def logged(fn, *args):
+    """Run fn(*args) keeping the port's log records; returns (its result,
+    the records)."""
+    records = LogRecords()
+    port_log = logging.getLogger("voxe_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    port_log.addHandler(records)
+    try:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        port_log.removeHandler(records)
+    return out, records.records
+
+
+RECON_CLI_STAGES, RECON_CLI_ITERS = 4, 3
+
+
+def write_random_lpips_weights(root: Path) -> Path:
+    """Seeded random LPIPS-VGG weights in the layout the port loads:
+    torchvision's `vgg16.pth` (conv weights scaled by 0.3, so that 13
+    stacked random convs stay finite) and the lpips heads `lpips_vgg.pth`."""
+    root.mkdir(parents=True, exist_ok=True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        feats = build_vgg16_features()
+        with torch.no_grad():
+            for m in feats:
+                if hasattr(m, "weight"):
+                    m.weight.mul_(0.3)
+        heads = {f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1) * 0.1
+                 for i, c in enumerate((64, 128, 256, 512, 512))}
+    torch.save({f"features.{k}": v for k, v in feats.state_dict().items()}, root / "vgg16.pth")
+    torch.save(heads, root / "lpips_vgg.pth")
+    return root
+
+
+def phase_recon_cli(workdir: Path) -> int:
+    """The recon CLI module end to end at its default flags: 4 stages (20^3
+    .. 160^3 grids on 50^2 .. 400^2 images) of a few shear-warp iterations
+    with the fused kernel, the camera rays, feedback and held-out tests (with
+    LPIPS on seeded random weights through $VOXE_LPIPS_WEIGHTS_DIR), ending
+    in model_final.pth; returns its compositing launches."""
     out = workdir / "cli_out"
+    lpips_dir = write_random_lpips_weights(workdir / "lpips")
     t0 = time.perf_counter()
-    recon_cli.main([
-        "-d", str(workdir / "scene"), "-o", str(out), "--num_stages", "4", "--num_iterations_per_stage", "3",
-        "--fast_debug_mode", "True", "--use_fused_kernel", "True", "--device", "cuda",
-    ])
-    torch.cuda.synchronize()
+    reset_counts()  # counts from here to the end of the recon CLI's run
+    os.environ["VOXE_LPIPS_WEIGHTS_DIR"] = str(lpips_dir)
+    try:
+        _, records = logged(recon_cli.main, [
+            "-d", str(workdir / "scene"), "-o", str(out), "--num_stages", str(RECON_CLI_STAGES),
+            "--num_iterations_per_stage", str(RECON_CLI_ITERS), "--use_fused_kernel", "True", "--device", "cuda",
+        ])
+    finally:
+        del os.environ["VOXE_LPIPS_WEIGHTS_DIR"]
+    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    seconds = time.perf_counter() - t0
     model, info = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
     dens = model.grid.densities
-    log("recon-cli", stages=4, iterations_per_stage=3, seconds=time.perf_counter() - t0,
-        final_grid=list(model.grid.grid_dims), finite=bool(torch.isfinite(dens).all()),
+    # the JAX trainer's cadence at feedback 100 / test 250 with 3 iterations a
+    # stage: feedback on each stage's first and last iteration (colour and
+    # diffuse PNGs), the held-out test on each stage's last
+    steps = RECON_CLI_STAGES * RECON_CLI_ITERS
+    feedback_steps = sorted({s * RECON_CLI_ITERS + i for s in range(RECON_CLI_STAGES) for i in (1, RECON_CLI_ITERS)})
+    pngs = [out / "training_logs" / "rendered_output" / f"default_{kind}iter_{g}.png"
+            for g in feedback_steps for kind in ("", "diffuse_")]
+    tests = [(r.global_step, r.test_metrics) for r in records if hasattr(r, "test_metrics")]
+    stages = [r for r in records if hasattr(r, "stage_training_s")]
+    test_images = len(list((workdir / "scene" / "test").glob("*.png")))
+    want = 2 * steps + len(pngs) + -(-SCENE**2 // 32768) * test_images * RECON_CLI_STAGES
+    log("recon-cli", stages=RECON_CLI_STAGES, iterations_per_stage=RECON_CLI_ITERS, seconds=seconds,
+        camera_rays_png=(out / "camera_rays.png").exists(), feedback_pngs=sum(p.exists() for p in pngs),
+        feedback_pngs_jax_cadence=len(pngs), feedback_steps=feedback_steps,
+        heldout=[{"step": g, **m} for g, m in tests],
+        stage_training_s=[r.stage_training_s for r in stages], stage_feedback_s=[r.stage_feedback_s for r in stages],
+        stage_test_s=[r.stage_test_s for r in stages], composite_launches=launches, composite_launches_want=want,
+        flash_launches=flash, final_grid=list(model.grid.grid_dims), finite=bool(torch.isfinite(dens).all()),
         hemispherical_radius=info.get("hemispherical_radius"))
     if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(dens).all():
         raise AssertionError("recon CLI: model_final.pth does not hold a finite 160^3 grid")
+    if not (out / "camera_rays.png").exists() or not all(p.exists() for p in pngs):
+        raise AssertionError("recon CLI: camera_rays.png or feedback PNGs missing")
+    if [g for g, _ in tests] != [(s + 1) * RECON_CLI_ITERS for s in range(RECON_CLI_STAGES)] or not all(
+            np.isfinite(m["psnr"]) and 0.0 < m["ssim"] <= 1.0 and np.isfinite(m.get("lpips", np.nan))
+            for _, m in tests):
+        raise AssertionError(f"recon CLI: held-out tests {tests}")
+    if launches != want or flash != 0:
+        raise AssertionError(f"recon CLI: {launches} compositing launches, want {want}; {flash} flash")
+    return launches
+
+
+def frame_stats(records) -> dict:
+    """Median and range of the per-frame ms that the camera-path render
+    logged (the first frame's warm-up included)."""
+    frame_ms = next(r.frame_ms for r in records if hasattr(r, "frame_ms"))
+    return dict(frames=len(frame_ms), ms_per_frame_median=float(np.median(frame_ms)),
+                ms_per_frame_min=min(frame_ms), ms_per_frame_max=max(frame_ms), ms_first_frame=frame_ms[0])
+
+
+def check_video(path: Path, frames: int, side: int) -> None:
+    num, width, height, jpegs = read_mjpeg_avi(path)
+    if (num, width, height, len(jpegs)) != (frames, side, side, frames):
+        raise AssertionError(f"{path}: {num} frames ({len(jpegs)} chunks) of {width}x{height}")
+
+
+TURNTABLE_FRAMES = 179  # the CLI's default --num_frames 180 (the last pose dropped)
+
+
+def phase_render_cli(workdir: Path, shear_warp: bool) -> int:
+    """The render CLI on the recon CLI's model_final.pth at its full width
+    (800^2, 512 samples), cut in depth to a few turntable frames; returns
+    its compositing launches."""
+    name = "render-cli-shear-warp" if shear_warp else "render-cli-exact"
+    num_frames = 37 if shear_warp else 9
+    out = workdir / name
+    args = ["-i", str(workdir / "cli_out" / "saved_models" / "model_final.pth"), "-o", str(out),
+            "--num_frames", str(num_frames), "--use_shear_warp", str(shear_warp), "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of this path's run
+    frames, records = logged(render_cli.main, args)
+    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    stats = frame_stats(records)
+    n = num_frames - 1
+    log(name, **stats, turntable_179_frames_s_computed=stats["ms_per_frame_median"] * TURNTABLE_FRAMES / 1e3,
+        phase_s=time.perf_counter() - t0, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        composite_launches=launches, launches_per_frame=launches / n, flash_launches=flash,
+        frame_shape=list(frames.shape), video="RIFF/AVI, MJPEG")
+    check_video(out / "rendered_video.mp4", n, 2 * SCENE)
+    per_frame = 1 if shear_warp else -(-(2 * SCENE) ** 2 // 32768)
+    if frames.shape != (n, 2 * SCENE, 2 * SCENE, 3) or stats["frames"] != n or launches != per_frame * n:
+        raise AssertionError(f"{name}: frames {frames.shape}, {launches} launches, want {per_frame} a frame")
+    if not 0 < frames.mean() < 255:
+        raise AssertionError(f"{name}: blank frames")
+    # device busy time and top kernels of one frame
+    config = render_cli.build_parser().parse_args(args)
+    model, info = load_volumetric_model(Path(config.model_path), device="cuda")
+    model.render_config = model.render_config.replace(white_bkgd=True)
+    intr, poses = render_cli.camera_setup(config, info)
+    profile_call(lambda: render_camera_path_for_volumetric_model(
+        model, poses[:1], intr, config.overridden_num_samples_per_ray, config.render_scale_factor,
+        use_shear_warp=shear_warp), 1, stats["ms_per_frame_median"])
+    return launches
+
+
+def phase_render_attn_cli(workdir: Path, snapshot14: Path) -> dict:
+    """The attention render CLI on the refine CLI's edit attention grid at
+    800^2: the blend on both routes, then live SD 1.4 attention; returns each
+    run's (flash, compositing) launches."""
+    model = workdir / "refine-cli" / "saved_models" / "model_final_attn_edit.pth"
+    runs = {
+        "render-attn-shear-warp": (5, ["--use_shear_warp", "True"], 2),
+        "render-attn-exact": (3, [], -(-(2 * SCENE) ** 2 // 32768)),
+        "render-attn-sd": (3, ["--use_sd", "True", "--sd_weights_dir", str(snapshot14), "--timestamp", "200",
+                               "--sds_prompt", "a dog wearing a party hat", "--index_to_attn", "4"],
+                           -(-(2 * SCENE) ** 2 // 32768)),
+    }
+    counts = {}
+    for name, (num_frames, extra, per_frame) in runs.items():
+        out = workdir / name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        reset_counts()  # counts from here to the end of this path's run
+        frames, records = logged(render_attn_cli.main, [
+            "-i", str(model), "-o", str(out), "--num_frames", str(num_frames), "--device", "cuda"] + extra)
+        counts[name] = (fa.LAUNCHES, comp.LAUNCHES)
+        n = num_frames - 1
+        log(name, **frame_stats(records), phase_s=time.perf_counter() - t0,
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[name][0],
+            composite_launches=counts[name][1], launches_per_frame=counts[name][1] / n, frame_shape=list(frames.shape))
+        check_video(out / "rendered_video.mp4", n, 2 * SCENE)
+        if frames.shape != (n, 2 * SCENE, 2 * SCENE, 3) or counts[name] != (0, per_frame * n):
+            raise AssertionError(f"{name}: frames {frames.shape}, launches {counts[name]}, want {per_frame} a frame")
+    return counts
+
+
+def phase_shape_sweep(dev) -> float:
+    """The compositing kernel against its plain version at every [N, S] it
+    launched in this run that the kernel check did not hold; returns the
+    largest error."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    shapes = sorted(comp.LAUNCHED_SHAPES - CHECKED_SHAPES)
+    errs = [hold_composite(composite_inputs(g, n, s_, 5.0, dev), f"launched_{n}x{s_}") for n, s_ in shapes]
+    log("shape-sweep", launched_shapes=sorted(comp.LAUNCHED_SHAPES), swept=shapes)
+    return max(errs, default=0.0)
 
 
 SAFETENSORS_NAMES = {torch.float32: "F32", torch.bfloat16: "BF16"}
@@ -765,24 +983,16 @@ def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
         "--sd_weights_dir", str(snapshot14), "--num_iterations_per_stage", str(iters),
         "--feedback_frequency", str(every), "--save_frequency", str(every), "--device", str(dev),
     ]
-    records = LogRecords()
-    port_log = logging.getLogger("voxe_tpu_torch")
-    port_log.setLevel(logging.INFO)
-    port_log.addHandler(records)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_counts()  # counts from here to the end of the refine path's run
-    try:
-        refine_cli.main(args)
-        torch.cuda.synchronize()
-    finally:
-        port_log.removeHandler(records)
+    _, records = logged(refine_cli.main, args)
     counts = {"refine-cli": (fa.LAUNCHES, comp.LAUNCHES)}
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
-    done = next(r for r in records.records if hasattr(r, "time_training"))
-    edges = next(r.graph_cut_edges for r in records.records if hasattr(r, "graph_cut_edges"))
+    done = next(r for r in records if hasattr(r, "time_training"))
+    edges = next(r.graph_cut_edges for r in records if hasattr(r, "graph_cut_edges"))
     saved = out / "saved_models"
     refined, _ = load_volumetric_model(saved / "model_final_refined.pth", device=dev)
     keep = torch.unique(refined.grid.attn).tolist()
@@ -853,17 +1063,6 @@ def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> t
     return flash, composite
 
 
-class LogRecords(logging.Handler):
-    """Keeps the port's log records (the editing loop logs its training time)."""
-
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.records = []
-
-    def emit(self, record):
-        self.records.append(record)
-
-
 def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) -> tuple:
     """The edit CLI module end to end; returns its (flash, compositing)
     launches."""
@@ -877,22 +1076,14 @@ def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) 
         "--num_iterations_edit", str(steps), "--feedback_frequency", str(feedback_every),
         "--save_frequency", str(feedback_every), "--fast_debug_mode", "False", "--device", str(dev),
     ] + (["--data_pose_mode", "True"] if data_pose else [])
-    records = LogRecords()
-    port_log = logging.getLogger("voxe_tpu_torch")
-    port_log.setLevel(logging.INFO)
-    port_log.addHandler(records)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_counts()  # counts from here to the end of this path's run
-    try:
-        edit_cli.main(args)
-        torch.cuda.synchronize()
-    finally:
-        port_log.removeHandler(records)
+    _, records = logged(edit_cli.main, args)
     flash, composite = fa.LAUNCHES, comp.LAUNCHES
     seconds = time.perf_counter() - t0
-    time_training = next(r.time_training for r in records.records if hasattr(r, "time_training"))
+    time_training = next(r.time_training for r in records if hasattr(r, "time_training"))
     model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device=dev)
     before, _ = load_volumetric_model(ref, device=dev)
     dens = model.grid.densities
@@ -956,7 +1147,9 @@ def main() -> int:
         work = Path(tmp)
         comp_row["launches"] = timed("recon-main-path", phase_recon_main, dev, work)
         by_path["recon"] = {"flash_attn_fwd": 0, "composite_fwd": comp_row["launches"]}
-        timed("recon-cli", phase_recon_cli, work)
+        by_path["recon-cli"] = {"flash_attn_fwd": 0, "composite_fwd": timed("recon-cli", phase_recon_cli, work)}
+        for name, shear_warp in (("render-cli-exact", False), ("render-cli-shear-warp", True)):
+            by_path[name] = {"flash_attn_fwd": 0, "composite_fwd": timed(name, phase_render_cli, work, shear_warp)}
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
             flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
@@ -966,6 +1159,9 @@ def main() -> int:
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         flash, composite = timed("edit-refine", phase_edit_refine, dev, work, snapshot, snapshot14)
         by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        for name, (flash, composite) in timed("render-attn-cli", phase_render_attn_cli, work, snapshot14).items():
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+    comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
     for row in (flash_row, comp_row):
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
     print(json.dumps({"kernels": [flash_row, comp_row]}), flush=True)

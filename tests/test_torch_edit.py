@@ -391,11 +391,12 @@ def test_cli_flags_match_click_command():
     assert port_opts == click_opts
 
 
-def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
+def test_cli_tiny_end_to_end(tmp_path, tiny_scene, capsys):
     """The recon CLI then the edit CLI on the CPU with the tiny SD: feedback
     PNGs and checkpoints written, a model_final.pth that both packages read;
-    refinement without its token indices or SD 1.4 weights is refused, and
-    the multi-device flags raise."""
+    refinement without its token indices or SD 1.4 weights, or with
+    `--steps_per_call > 1`, is refused before the edit, and the multi-device
+    flags raise."""
     trecon_cli.main([
         "-d", str(tiny_scene), "-o", str(tmp_path / "recon"), "--grid_dims", "16", "16", "16", "--num_stages", "1",
         "--num_iterations_per_stage", "2", "--fast_debug_mode", "True", "--use_fused_kernel", "True", "--device", "cpu",
@@ -422,5 +423,14 @@ def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
         with pytest.raises(SystemExit):
             tcli.main(args + extra)
     assert not (tmp_path / "edit" / "saved_models" / "model_final_refined.pth").exists()
+    # the fused refinement (K iterations a call) is not ported: refused before
+    # the edit, which would otherwise refine with the per-iteration cadence
+    fused = ["-i", str(ref), "-o", str(tmp_path / "edit_fused"), "-p", "a dog wearing a hat", "-d", str(tiny_scene),
+             "--data_downsample_factor", "1", "--sd_version", "tiny", "--device", "cpu", "--do_refinement", "True",
+             "-eidx", "4", "--steps_per_call", "2", "--num_iterations_edit", "1"]
+    with pytest.raises(SystemExit) as exit_info:
+        tcli.main(fused)
+    assert exit_info.value.code == 2 and "fused refinement" in capsys.readouterr().err
+    assert not (tmp_path / "edit_fused").exists()
     with pytest.raises(NotImplementedError, match="num_devices"):
         tcli.main(args + ["--num_devices", "2"])

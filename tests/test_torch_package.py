@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of voxe_tpu_torch (nor
-chip_smoke.py) imports jax, flax, optax, safetensors or voxe_tpu (the card
-has no safetensors package: the port reads the format itself), and its
+chip_smoke.py) imports jax, flax, optax, safetensors, voxe_tpu, matplotlib
+or imageio (the card has none of the last three: the port reads safetensors
+itself and writes images and videos with Pillow), and its
 native segmentation backend is built from the port's own C++ sources into
 its own build directory. Plus the
 flash kernel's wrapper contract, and the kernel held against its plain
@@ -29,12 +30,15 @@ def _modules():
 def test_port_imports_no_jax_or_reference_package():
     mods = _modules()
     assert "voxe_tpu_torch.ops.flash_attention" in mods and len(mods) >= 20
+    for name in ("cli.render_sh_based_voxel_grid", "cli.render_sh_based_voxel_grid_attn", "viz.animations",
+                 "viz.video", "models.lpips"):
+        assert f"voxe_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu', 'matplotlib', 'imageio'))\n"
         "from voxe_tpu_torch.seg import native\n"
         "native.get_lib()\n"
         "srcs = [native.SEG_SRC_DIR / s for s in native.SOURCES]\n"

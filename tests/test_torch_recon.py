@@ -445,7 +445,8 @@ def test_checkpoints_load_across_packages(tmp_path):
 def test_cli_tiny_end_to_end(tiny_scene, tmp_path):
     """The CLI module on the CPU: 2 stages x 3 shear-warp iterations with
     the fused kernel's plain version, ending in model_final.pth, which both
-    packages read back; the tester's PSNR/SSIM on the held-out split."""
+    packages read back; the tester's PSNR/SSIM on the held-out split; a run
+    at the default fast_debug_mode; steps_per_call > 1 raises."""
     out = tmp_path / "out"
     tcli.main([
         "-d", str(tiny_scene), "-o", str(out), "--grid_dims", "16", "16", "16", "--num_stages", "2",
@@ -463,7 +464,11 @@ def test_cli_tiny_end_to_end(tiny_scene, tmp_path):
     test_set = TDataset(tiny_scene / "test", tiny_scene / "test_camera_params.json", rgba_white_bkgd=True, device="cpu")
     metrics = t_tester(model, test_set)
     assert np.isfinite(metrics["psnr"]) and 0.0 < metrics["ssim"] <= 1.0
-    with pytest.raises(NotImplementedError, match="fast_debug_mode"):
-        tcli.main(["-d", str(tiny_scene), "-o", str(out), "--num_stages", "1", "--grid_dims", "8", "8", "8", "--device", "cpu"])
+    # at its default fast_debug_mode False the CLI also draws the camera rays
+    # and writes feedback (the file names are held in test_torch_recon_outputs.py)
+    tcli.main(["-d", str(tiny_scene), "-o", str(tmp_path / "default"), "--num_stages", "1", "--grid_dims", "8", "8",
+               "8", "--num_iterations_per_stage", "1", "--render_num_samples_per_ray", "64", "--device", "cpu"])
+    assert (tmp_path / "default" / "camera_rays.png").exists()
+    assert (tmp_path / "default" / "training_logs" / "rendered_output" / "default_iter_1.png").exists()
     with pytest.raises(NotImplementedError, match="steps_per_call"):
         tcli.main(["-d", str(tiny_scene), "-o", str(out), "--fast_debug_mode", "True", "--steps_per_call", "2", "--device", "cpu"])

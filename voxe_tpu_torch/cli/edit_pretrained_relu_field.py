@@ -136,10 +136,16 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
                 "--do_refinement with real SD weights needs --sd_refine_weights_dir pointing at a "
                 "converted SD **1.4** snapshot (refinement uses 1.4)"
             )
+        if config.steps_per_call > 1:
+            # the refinement would run one iteration per call with the
+            # per-iteration snapshot and feedback cadence, not the fused one
+            parser.error(
+                "--do_refinement with --steps_per_call > 1 needs the fused refinement "
+                "(K refinement iterations per call), which is not ported yet"
+            )
     if config.multihost or config.num_devices > 1:
         raise NotImplementedError(
-            "--multihost / --num_devices > 1: multi-device edits are not ported yet "
-            "(ROADMAP item 8, num_devices > 1)"
+            "--multihost / --num_devices > 1: multi-device edits (the data-parallel mesh) are not ported yet"
         )
     check_device(config.device)
     output_path = Path(config.output_path)

@@ -14,8 +14,14 @@ zero rays (as the JAX `lax.map` does), under `torch.no_grad()`; with
 a camera inside the grid's AABB along its marching axis, which the
 factorization cannot render: that pose goes to the exact renderer, with a
 warning, as in the JAX package. `attn=True` renders the attention field
-instead of the colour, on either path. Not ported yet: the camera-path
-renders.
+instead of the colour, on either path.
+
+The camera-path renders (`render_camera_path_fast[_attn]`) take every frame
+of a path through the shear-warp screen render in a no-grad loop over the
+poses on the grid's device, turn each into uint8 there (`to8b`'s
+truncation) and stack them (`utils/timing.py::render_frames`, which logs
+the frames' times); they refuse the whole path when one pose sits inside
+the grid's AABB.
 """
 from __future__ import annotations
 
@@ -36,8 +42,10 @@ from voxe_tpu_torch.render.interface import (
     render_sh_voxel_grid_attn,
 )
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
-from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose
+from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, to8b_tensor
+from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
 from voxe_tpu_torch.utils.logging import log
+from voxe_tpu_torch.utils.timing import render_frames
 
 FORMAT = "voxe_tpu.volumetric_model.v1"
 EXTRA_INFO = "extra_info"
@@ -133,6 +141,57 @@ class VolumetricModel:
             depth=reshape(out.depth),
             extra={k: reshape(v) for k, v in out.extra.items()},
         )
+
+    def _fast_path_config(self, poses) -> SHVoxGridRenderConfig:
+        """The deterministic preview config of the camera-path renders,
+        after checking every pose: one pose inside the volume refuses the
+        whole path (no per-frame fallback)."""
+        from voxe_tpu_torch.render.shearwarp import _host_f32, check_shear_warp_poses
+
+        check_shear_warp_poses(
+            self.grid,
+            np.stack([np.concatenate([_host_f32(p.rotation), _host_f32(p.translation).reshape(3, 1)], 1)
+                      for p in poses]),
+            "fast camera-path render",
+        )
+        return self.render_config.replace(perturb_sampled_points=False, stochastic_density_noise_std=0.0)
+
+    @torch.no_grad()
+    def render_camera_path_fast(self, camera_intrinsics: CameraIntrinsics, poses) -> np.ndarray:
+        """Every frame of a camera path through the shear-warp screen render
+        (its default base lattice). Returns [T, H, W, 3] uint8."""
+        from voxe_tpu_torch.render.shearwarp import render_shear_warp_to_screen
+
+        cfg = self._fast_path_config(poses)
+
+        def one(pose):
+            return (to8b_tensor(render_shear_warp_to_screen(self.grid, pose, camera_intrinsics, cfg).colour),)
+
+        return render_frames(poses, one, self.grid.densities.device, "shear-warp")[0]
+
+    @torch.no_grad()
+    def render_camera_path_fast_attn(
+        self, camera_intrinsics: CameraIntrinsics, poses, include_rgb: bool = True
+    ) -> Tuple[Optional[np.ndarray], np.ndarray, np.ndarray]:
+        """RGB, attention and attention-coverage frames of a camera path
+        through the shear-warp screen render: ([T, H, W, 3] uint8 or None,
+        [T, H, W] uint8, [T, H, W] uint8), attention and coverage clipped to
+        [0, 1] and scaled to 0..255. `include_rgb=False` skips the RGB
+        render."""
+        from voxe_tpu_torch.render.shearwarp import render_shear_warp_to_screen
+
+        cfg = self._fast_path_config(poses)
+
+        def one(pose):
+            out = render_shear_warp_to_screen(self.grid, pose, camera_intrinsics, cfg, attn_mode=True)
+            attn = (to8b_tensor(out.colour[..., 0]), to8b_tensor(out.extra[EXTRA_ACCUMULATED_WEIGHTS][..., 0]))
+            if not include_rgb:
+                return attn
+            rgb = render_shear_warp_to_screen(self.grid, pose, camera_intrinsics, cfg).colour
+            return (to8b_tensor(rgb),) + attn
+
+        frames = render_frames(poses, one, self.grid.densities.device, "shear-warp attention")
+        return tuple(frames) if include_rgb else (None, *frames)
 
     def save(self, path: Path, extra_info: Optional[Dict[str, Any]] = None) -> None:
         save_volumetric_model(self, Path(path), extra_info)

@@ -13,7 +13,8 @@ kernel on CUDA tensors and the plain version on CPU tensors; a CUDA tensor
 the kernel cannot take (dtype, layout, device) raises — there is no
 fallback. Its backward re-differentiates the plain version, as the JAX
 package's custom VJP does, so the backward launches no kernel. `LAUNCHES`
-counts kernel launches and nothing else.
+counts kernel launches and nothing else; `LAUNCHED_SHAPES` holds the [N, S]
+of every launch since import.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ _LIB = CudaLibrary(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 )
 LAUNCHES = 0  # kernel launches since import (or the last reset)
+LAUNCHED_SHAPES = set()  # (N, S) of every launch since import
 
 
 def reset_launches() -> None:
@@ -92,6 +94,7 @@ def composite_weights_kernel(
         raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
     global LAUNCHES
     LAUNCHES += 1
+    LAUNCHED_SHAPES.add((N, S))
     return weights, acc
 
 

@@ -15,10 +15,12 @@ backward and one Adam update of the grid in place:
 The JAX package draws ray indices and jitter with `jax.random`; here they
 come from a `torch.Generator`, and tests may inject them. The image index of
 the shear-warp step is drawn from a numpy Generator, as in the JAX trainer.
-`train_sh_vox_grid_vol_mod_with_posed_images` runs the stage ladder. Not
-ported yet: `steps_per_call > 1`, `num_devices > 1`, streaming datasets,
-`coarse_stages_on_cpu`, `resume_from`, and the visualisations (so the
-stage ladder needs `fast_debug_mode=True`).
+`train_sh_vox_grid_vol_mod_with_posed_images` runs the stage ladder; unless
+`fast_debug_mode`, it draws the camera rays once, renders feedback PNGs
+every `feedback_freq` steps and tests on the held-out set every `test_freq`
+steps, both left out of the training time. Not ported yet: `steps_per_call
+> 1`, `num_devices > 1`, streaming datasets, `coarse_stages_on_cpu` and
+`resume_from`.
 """
 from __future__ import annotations
 
@@ -287,19 +289,27 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     for it, with Adam at lr `learning_rate * stagewise_lr_decay_gamma **
     (stage - 1)` decayed by `lr_decay_gamma_per_stage` every
     `lr_decay_steps_per_stage` updates, then upsamples the grid. Snapshots go
-    to `output_dir/saved_models`, ending with `model_final.pth`."""
+    to `output_dir/saved_models`, ending with `model_final.pth`; feedback
+    PNGs to `output_dir/training_logs/rendered_output` (from
+    `render_feedback_pose`, by default the first test, else train, pose);
+    scalars to `training_logs/tensorboard` when tensorboardX imports."""
     _unsupported(
         num_devices=(num_devices, 1), resume_from=(resume_from, None),
         steps_per_call=(steps_per_call, 1), coarse_stages_on_cpu=(coarse_stages_on_cpu, False),
     )
-    if not fast_debug_mode:
-        raise NotImplementedError(
-            "fast_debug_mode=False: the camera-ray and rendered-feedback visualisations are not ported yet"
-        )
-    del render_feedback_pose, feedback_freq, verbose_rendering, coarse_ray_batch_size, test_freq
+    del verbose_rendering, coarse_ray_batch_size
     output_dir = Path(output_dir)
     model_dir = output_dir / "saved_models"
-    model_dir.mkdir(parents=True, exist_ok=True)
+    logs_dir = output_dir / "training_logs"
+    render_dir = logs_dir / "rendered_output"
+    for d in (model_dir, logs_dir, render_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    try:
+        from tensorboardX import SummaryWriter
+
+        tb_writer = SummaryWriter(str(logs_dir / "tensorboard"))
+    except ImportError:
+        tb_writer = None
     dev = vol_mod.grid.densities.device
 
     final_dims = vol_mod.grid.grid_dims
@@ -321,11 +331,20 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         features=torch.rand(grid.features.shape, generator=gen, device=dev) * (hi - lo) + lo,
     )
 
+    if render_feedback_pose is None:
+        pose0 = (test_dataset if test_dataset is not None else train_dataset).poses[0]
+        render_feedback_pose = CameraPose(rotation=pose0[:, :3], translation=pose0[:, 3:])
+    camera_intrinsics = train_dataset.camera_intrinsics
     extra_info = {
         CAMERA_BOUNDS: list(train_dataset.camera_bounds),
-        CAMERA_INTRINSICS: list(train_dataset.camera_intrinsics),
+        CAMERA_INTRINSICS: list(camera_intrinsics),
         HEMISPHERICAL_RADIUS: train_dataset.get_hemispherical_radius_estimate(),
     }
+    if not fast_debug_mode:
+        from voxe_tpu_torch.viz.static import visualize_camera_rays
+
+        log.info("creating a camera-rays visualization ...")
+        visualize_camera_rays(train_dataset, output_dir, num_rays_per_image=1)
     rng = np.random.default_rng(seed)
     log.info("beginning reconstruction training")
     time_training = 0.0
@@ -357,6 +376,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             f"training stage: {stage}  grid: {grid.grid_dims}  images: [{intr.height} x {intr.width}]  "
             f"lr: {stage_lr:.5f}"
         )
+        stage_time_start, stage_wall_start = time_training, time.perf_counter()
+        feedback_s = test_s = 0.0
         last_time = time.perf_counter()
         for stage_iteration in range(1, num_iterations_per_stage + 1):
             if use_shear_warp:
@@ -373,7 +394,29 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                     f"Stage: {stage} Global: {global_step} "
                     + " ".join(f"{k}: {v:.3f}" for k, v in metrics_host.items())
                 )
+                if tb_writer is not None:
+                    for k, v in metrics_host.items():
+                        tb_writer.add_scalar(k, v, global_step=global_step)
                 last_time = time.perf_counter()
+            if (global_step % feedback_freq == 0 or stage_iteration == 1 or last_iter) and not fast_debug_mode:
+                from voxe_tpu_torch.viz.static import visualize_sh_vox_grid_vol_mod_rendered_feedback
+
+                t0 = time.perf_counter()
+                visualize_sh_vox_grid_vol_mod_rendered_feedback(
+                    VolumetricModel(grid, render_config), "default", render_feedback_pose, camera_intrinsics,
+                    global_step, render_dir, training_time=time_training, use_shear_warp=use_shear_warp,
+                )
+                last_time = time.perf_counter()
+                feedback_s += last_time - t0
+            if test_dataset is not None and not fast_debug_mode and (global_step % test_freq == 0 or last_iter):
+                from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
+
+                t0 = time.perf_counter()
+                test_sh_vox_grid_vol_mod_with_posed_images(
+                    VolumetricModel(grid, render_config), test_dataset, tb_writer, global_step
+                )
+                last_time = time.perf_counter()
+                test_s += last_time - t0
             if global_step % save_freq == 0 or stage_iteration == 1 or last_iter:
                 frozen = grid.replace(densities=grid.densities.detach(), features=grid.features.detach())
                 VolumetricModel(frozen, render_config).save(
@@ -387,6 +430,14 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         time_training += time.perf_counter() - last_time
+        stage_s = time_training - stage_time_start
+        log.info(
+            f"stage {stage} done: training time {stage_s:.1f}s (synced), wall "
+            f"{time.perf_counter() - stage_wall_start:.1f}s incl. feedback {feedback_s:.1f}s, "
+            f"test {test_s:.1f}s, logging and checkpoints",
+            extra={"stage": stage, "stage_training_s": stage_s, "stage_feedback_s": feedback_s,
+                   "stage_test_s": test_s},
+        )
         if stage != num_stages:
             with torch.no_grad():
                 grid = scale_voxel_grid(grid, stagewise_sizes[stage])
@@ -394,5 +445,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     vol_mod.grid = grid.replace(densities=grid.densities.detach(), features=grid.features.detach())
     vol_mod.extra_info.update(extra_info)
     vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
-    log.info(f"Training complete; actual training time: {timedelta(seconds=time_training)}")
+    if tb_writer is not None:
+        tb_writer.close()
+    log.info(f"Training complete; actual training time: {timedelta(seconds=time_training)}",
+             extra={"time_training": time_training})
     return vol_mod

@@ -6,12 +6,14 @@ yaw @ pitch @ translate_z. Pose construction is tiny host math and stays in
 NumPy. Two hemisphere draws: `get_random_pose` on a `np.random.Generator`
 (the host draw of the editing loop, the same sequence as the JAX package's
 for the same seed) and `random_pose`, the counterpart of `random_pose_jax`,
-which draws pitch and yaw from an explicit `torch.Generator`.
+which draws pitch and yaw from an explicit `torch.Generator`. The camera
+paths of the render CLIs (turntable and spiral) drop the last of
+`num_poses` poses, as the reference does.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,6 +121,46 @@ def direction_index(pitch_deg: float, yaw_deg: float) -> int:
 
 def to8b(x) -> np.ndarray:
     return (255 * np.clip(np.asarray(x), 0, 1)).astype(np.uint8)
+
+
+def to8b_tensor(x: torch.Tensor) -> torch.Tensor:
+    """`to8b` on the tensor's device: clip to [0, 1], scale by 255 in f32 and
+    truncate to uint8."""
+    return (255.0 * torch.clamp(x.float(), 0.0, 1.0)).to(torch.uint8)
+
+
+def scale_camera_intrinsics(camera_intrinsics: CameraIntrinsics, scale_factor: float = 1.0) -> CameraIntrinsics:
+    """Height and width scaled and rounded up, focal scaled."""
+    return CameraIntrinsics(
+        height=int(np.ceil(camera_intrinsics.height * scale_factor)),
+        width=int(np.ceil(camera_intrinsics.width * scale_factor)),
+        focal=camera_intrinsics.focal * scale_factor,
+    )
+
+
+def get_thre360_animation_poses(hemispherical_radius: float, camera_pitch: float, num_poses: int) -> List[CameraPose]:
+    """Turntable: constant pitch, yaw over linspace(0, 360, num_poses) without
+    its last value (num_poses - 1 poses)."""
+    return [
+        pose_spherical(yaw, camera_pitch, hemispherical_radius)
+        for yaw in np.linspace(0, 360, num_poses)[:-1]
+    ]
+
+
+def get_thre360_spiral_animation_poses(
+    horizontal_radius_range: Tuple[float, float],
+    vertical_camera_height: float,
+    num_rounds: int,
+    num_poses: int,
+) -> List[CameraPose]:
+    """Spiral: the horizontal radius grows over `horizontal_radius_range`
+    while the yaw turns `num_rounds` times at a fixed camera height
+    (num_poses - 1 poses)."""
+    horizontal_radii = np.linspace(*horizontal_radius_range, num_poses)[:-1]
+    radii = [np.sqrt(hr**2 + vertical_camera_height**2) for hr in horizontal_radii]
+    yaws = np.linspace(0, 360 * num_rounds, num_poses)[:-1]
+    pitches = [math.atan(hr / vertical_camera_height) * 180 / math.pi for hr in horizontal_radii]
+    return [pose_spherical(yaw, pitch, radius) for yaw, pitch, radius in zip(yaws, pitches, radii)]
 
 
 def adjust_dynamic_range(data, drange_in, drange_out, slack: bool = False):

@@ -1,1 +1,1 @@
-"""Training feedback images (counterpart of voxe_tpu/viz)."""
+"""Training feedback images, camera-path renders and the turntable video (counterpart of voxe_tpu/viz)."""

@@ -1,11 +1,14 @@
-"""Rendered feedback panels of a training run (counterpart of
-voxe_tpu/viz/static.py: `postprocess_depth_map`,
-`visualize_sh_vox_grid_vol_mod_rendered_feedback` and its attention twin).
+"""Rendered feedback panels of a training run and the camera-ray picture of
+a dataset (counterpart of voxe_tpu/viz/static.py: `postprocess_depth_map`,
+`visualize_camera_rays`, `visualize_sh_vox_grid_vol_mod_rendered_feedback`
+and its attention twin).
 
 PNGs are written with Pillow; the depth colormap is matplotlib's "magma"
 resampled to 1024 entries, looked up here from its listed values
 (`_magma.py`), and the attention colormap is matplotlib's "jet" (`_jet.py`),
-so neither imageio nor matplotlib is needed.
+so neither imageio nor matplotlib is needed. The camera rays are drawn in
+the fixed orthographic view of the refinement's 3-D scatters
+(`viz/refinement.py`), not with matplotlib's 3-D axes.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
-from PIL import Image
+from PIL import Image, ImageDraw
 
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose, adjust_dynamic_range, to8b
 from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
@@ -62,6 +65,41 @@ def postprocess_depth_map(depth_map, acc_map: Optional[np.ndarray] = None) -> np
         dr = acc_map + (1.0 - acc_map) ** 2
         return to8b(nr / dr)
     return to8b(coloured)
+
+
+def camera_ray_geometry(poses, intrinsics: CameraIntrinsics, num_rays_per_image: int = 1):
+    """(origins [N, 3], directions [N, R, 3]) in float64 of R pixels per
+    [N, 3, 4] pose, evenly spaced over the flat pixel index: pixel centres
+    at +0.5, the camera looking down -z with +y up (`cast_rays`' rays at
+    those pixels)."""
+    h, w, focal = intrinsics.height, intrinsics.width, float(intrinsics.focal)
+    picks = np.linspace(0, h * w - 1, num_rays_per_image).astype(int)
+    px, py = picks % w + 0.5, picks // w + 0.5
+    dirs_cam = np.stack([(px - w * 0.5) / focal, -(py - h * 0.5) / focal, -np.ones_like(px)], axis=-1)
+    poses = np.asarray(poses, np.float64)
+    return poses[:, :, 3], np.einsum("rj,nij->nri", dirs_cam, poses[:, :, :3])
+
+
+def visualize_camera_rays(dataset, output_dir: Path, num_rays_per_image: int = 1) -> None:
+    """`camera_rays.png`: each camera's origin (red) and `num_rays_per_image`
+    of its rays, 1.5 direction lengths long (blue)."""
+    from voxe_tpu_torch.viz.refinement import _CANVAS, _project
+
+    origins, dirs = camera_ray_geometry(dataset.poses, dataset.camera_intrinsics, num_rays_per_image)
+    ends = origins[:, None, :] + 1.5 * dirs
+    xyd = _project(np.concatenate([origins, ends.reshape(-1, 3)]))
+    img = Image.new("RGB", _CANVAS, (255, 255, 255))
+    draw = ImageDraw.Draw(img)
+    n, r = len(origins), 3
+    for i in range(n):
+        for j in range(num_rays_per_image):
+            end = xyd[n + i * num_rays_per_image + j]
+            draw.line([tuple(xyd[i, :2]), tuple(end[:2])], fill=(31, 119, 180), width=2)
+    for x, y, _ in xyd[:n]:
+        draw.ellipse([x - r, y - r, x + r, y + r], fill=(214, 39, 40))
+    output_dir = Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    img.save(output_dir / "camera_rays.png")
 
 
 def _host(t) -> np.ndarray:
