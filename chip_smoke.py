@@ -21,6 +21,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      compositing kernel and Adam (2 launches per step), a breakdown and the
      idle share, then the held-out images through the tester (5 launches per
      400^2 image);
+  6a. recon-kstep: that configuration at K = 10 steps a call against K = 1,
+     two rounds of 20 steps, each call ending in a loss read;
   7. recon-cli: the recon stage ladder end to end through its CLI module at
      its default flags (4 stages of 3 iterations): camera_rays.png, feedback
      renders at the JAX cadence (2 a stage, 1 compositing launch a render),
@@ -28,6 +30,12 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      SSIM and LPIPS-VGG on the card, on seeded random weights), the
      seconds both add to a stage, ending in a model_final.pth that loads
      back;
+  7r. recon-cli-resume: the recon CLI with --steps_per_call 10 (4 stages of
+     12 iterations), then --resume from its training_state_latest.pth: the
+     ladder fast-forwards to stage 4 and continues;
+  7s. recon-streaming: one exact-route stage of the 400^2 scene through the
+     trainer, RAM-backed, memmap-backed (pixels gathered on the host) and
+     RAM-backed again: ms/step of each;
   7a. render-cli-exact: the render CLI on that model_final.pth at its full
      width (800^2, 512 samples, the exact renderer in chunks of 32,768 rays:
      20 compositing launches a frame), 8 frames of the turntable: ms per
@@ -47,9 +55,10 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      step and feedback render, the training time per step, peak memory;
  10. edit-data-pose: the same CLI in dataset-pose mode, 2 steps;
  11. sd14-weights: SD 1.4 at its published widths (the refinement's model:
-     head_dim 40 at 64^2, so the plain attention there) with seeded random
-     weights, written as an HF snapshot and loaded back bitwise; the plain
-     64^2 self-attention's time and transient memory; then
+     head_dim 40 at 64^2, so the library SDPA there) with seeded random
+     weights, written as an HF snapshot and loaded back bitwise; the 64^2
+     self-attention's time and transient memory, SDPA against the plain
+     version; then
      refine-breakdown: one refinement iteration at full width (160^3, 384^2
      base) layer by layer;
  12. refine-cli: the refine CLI module on the edit-cli phase's
@@ -57,6 +66,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      shear-warp iterations (2 compositing launches each), feedback and
      snapshots every 3 (5 launches a feedback point), the graph cut and merge
      at 160^3; then the segment CLI on its attention grids;
+ 12k. refine-kstep: the refine CLI with --steps_per_call 10 over 20
+     iterations, graph cut and merge, then the same at --steps_per_call 1;
  13. edit-refine: the edit CLI with --do_refinement and --post_process_scc,
      2 SDS steps and 2 refinement iterations;
  14. render-attn-cli: the attention render CLI on the refine CLI's edit
@@ -66,7 +77,9 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
  15. shape-sweep: the compositing kernel against its plain version at every
      [N, S] it launched in this run that phase 3 did not check;
  16. the `kernels` JSON line, the card line, and the final JSON line.
-Every phase's seconds are printed ([phase-seconds]). Imports nothing from
+Every phase's seconds are printed ([phase-seconds]), and every phase but the
+flash kernel's check fails if the plain attention
+(`flash_attention_reference`) ran on the card in it. Imports nothing from
 JAX or the JAX package.
 """
 from __future__ import annotations
@@ -112,6 +125,7 @@ from voxe_tpu_torch.render.shearwarp import lane_aligned_res, orient_base_image,
 from voxe_tpu_torch.train import recon as train_recon
 from voxe_tpu_torch.train import refine as train_refine
 from voxe_tpu_torch.train import sds as train_sds
+from voxe_tpu_torch.train.checkpointing import read_training_state
 from voxe_tpu_torch.train.losses import density_correlation_loss
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, pose_spherical
@@ -530,8 +544,10 @@ def phase_small_check_recon(dev) -> None:
         raise AssertionError(f"small-input recon step disagrees with the CPU: {rel}, launches {launches}")
 
 
-def phase_recon_main(dev, workdir: Path) -> int:
-    """The recon main path at full width; returns its composite launches."""
+def phase_recon_main(dev, workdir: Path) -> tuple:
+    """The recon main path at full width; returns its composite launches and
+    the trained state (grid, optimizer, config, base targets) that the
+    recon-kstep phase continues from."""
     t0 = time.perf_counter()
     scene = workdir / "scene"
     generate_synthetic_scene(scene, num_train=8, num_test=2, image_size=SCENE, focal=float(SCENE),
@@ -598,7 +614,47 @@ def phase_recon_main(dev, workdir: Path) -> int:
     total_launches = comp.LAUNCHES
     recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw)
     profile_call(lambda: step(grid, targets, masks, poses, 0), 1, ms_step)
-    return total_launches
+    context = dict(grid=grid, opt=opt, rcfg=rcfg, targets=targets, masks=masks, poses=poses, base_hw=base_hw,
+                   num_images=len(train))
+    return total_launches, context
+
+
+RECON_K, RECON_K_ROUNDS = 10, 2
+
+
+def phase_recon_kstep(ctx: dict) -> int:
+    """The recon main path's configuration at K = 10 steps a call against
+    K = 1, as the trainer runs them: each call draws its image indices on
+    the host and ends in a loss read (the summary's sync). Two rounds, each
+    one K = 10 call and ten K = 1 calls; returns the compositing launches."""
+    grid, opt = ctx["grid"], ctx["opt"]
+    args = (ctx["targets"], ctx["masks"], ctx["poses"])
+    schedule = train_recon.exponential_decay_staircase(0.03, 400, 0.1)
+    multi = {k: train_recon.make_recon_train_multi_step_shearwarp(ctx["rcfg"], opt, ctx["base_hw"], k, True,
+                                                                  lr_schedule=schedule) for k in (1, RECON_K)}
+    rng = np.random.default_rng(7)
+    torch.cuda.synchronize()
+    reset_counts()  # counts from here to the end of this path's run
+    ms = {1: [], RECON_K: []}
+    losses = []
+    for _ in range(RECON_K_ROUNDS):
+        for k, calls in ((RECON_K, 1), (1, RECON_K)):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                m = multi[k](grid, *args, rng.integers(0, ctx["num_images"], k))
+                losses.append(float(m["total_loss"]))  # the summary's device sync
+            ms[k].append((time.perf_counter() - t0) * 1e3 / (calls * k))
+    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    steps = 2 * RECON_K_ROUNDS * RECON_K
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    log("recon-kstep", k=RECON_K, steps=steps, ms_per_step_k10=med[RECON_K], ms_per_step_k1=med[1],
+        ms_per_step_k10_rounds=ms[RECON_K], ms_per_step_k1_rounds=ms[1],
+        steps_per_s_k10=1e3 / med[RECON_K], steps_per_s_k1=1e3 / med[1],
+        ratio_k10_over_k1=med[RECON_K] / med[1], composite_launches=launches, flash_launches=flash,
+        losses_finite=bool(np.isfinite(losses).all()))
+    if launches != 2 * steps or flash != 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 2 a step")
+    return launches
 
 
 def recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw) -> None:
@@ -722,6 +778,103 @@ def phase_recon_cli(workdir: Path) -> int:
     if launches != want or flash != 0:
         raise AssertionError(f"recon CLI: {launches} compositing launches, want {want}; {flash} flash")
     return launches
+
+
+RESUME_ITERS, RESUME_MORE = 12, 22  # 10 + 2 steps a stage; the resumed run adds a call of 10 and one of 1
+
+
+def heldout_launches(workdir: Path, tests: int) -> int:
+    """Compositing launches of `tests` held-out tests: 5 a 400^2 image."""
+    return -(-SCENE**2 // 32768) * len(list((workdir / "scene" / "test").glob("*.png"))) * tests
+
+
+def phase_recon_cli_resume(workdir: Path) -> int:
+    """The recon CLI at its defaults with --steps_per_call 10 (4 stages of
+    12 iterations: a call of 10 and one of 2 a stage), then --resume from
+    the training_state_latest.pth it wrote with 22 iterations a stage: the
+    ladder fast-forwards to stage 4 and continues after the saved iteration
+    (the first iteration of the saved call, as the JAX trainer records it).
+    Returns both runs' compositing launches."""
+    out, resumed = workdir / "cli_k10", workdir / "cli_k10_resumed"
+    base = ["-d", str(workdir / "scene"), "--num_stages", str(RECON_CLI_STAGES), "--steps_per_call", "10",
+            "--use_fused_kernel", "True", "--device", "cuda"]
+    reset_counts()  # counts from here to the end of both runs
+    t0 = time.perf_counter()
+    _, records = logged(recon_cli.main, base + ["-o", str(out), "--num_iterations_per_stage", str(RESUME_ITERS)])
+    first_s, first_launches = time.perf_counter() - t0, comp.LAUNCHES
+    state = out / "saved_models" / "training_state_latest.pth"
+    _, meta = read_training_state(state)
+    stages = [r for r in records if hasattr(r, "stage_training_s")]
+    t0 = time.perf_counter()
+    _, records2 = logged(recon_cli.main, base + ["-o", str(resumed), "--num_iterations_per_stage", str(RESUME_MORE),
+                                                 "--resume", str(state)])
+    resumed_s, launches, flash = time.perf_counter() - t0, comp.LAUNCHES, fa.LAUNCHES
+    stages2 = [r for r in records2 if hasattr(r, "stage_training_s")]
+    arrays2, meta2 = read_training_state(resumed / "saved_models" / "training_state_latest.pth")
+    # first run: 2 steps an iteration; feedback on each stage's first and last
+    # call (2 renders each); the held-out test at each stage's end
+    steps = RECON_CLI_STAGES * RESUME_ITERS
+    want_first = 2 * steps + 4 * RECON_CLI_STAGES + heldout_launches(workdir, RECON_CLI_STAGES)
+    resumed_steps = RESUME_MORE - meta["stage_iteration"]
+    want_resumed = 2 * resumed_steps + 2 + heldout_launches(workdir, 1)
+    snapshots = sorted(p.name for p in (resumed / "saved_models").glob("model_stage_*"))
+    log("recon-cli-resume", steps_per_call=10, first_run_s=first_s, first_run_steps=steps,
+        first_stage_training_s=[r.stage_training_s for r in stages],
+        last_stage_ms_per_step=stages[-1].stage_training_s / RESUME_ITERS * 1e3, saved=meta, resumed_s=resumed_s,
+        resumed_stages=[r.stage for r in stages2], resumed_state=meta2, resumed_steps=resumed_steps,
+        resumed_adam_count=int(arrays2["opt_state/0/count"]), resumed_snapshots=snapshots,
+        composite_launches_first=first_launches, composite_launches_resumed=launches - first_launches,
+        flash_launches=flash)
+    if (meta["stage"], meta["global_step"]) != (RECON_CLI_STAGES, steps) or [r.stage for r in stages2] != [
+            RECON_CLI_STAGES]:
+        raise AssertionError(f"recon-cli-resume: saved {meta}, resumed stages {[r.stage for r in stages2]}")
+    if meta2["global_step"] != steps + resumed_steps or int(arrays2["opt_state/0/count"]) != (
+            RESUME_ITERS + resumed_steps):
+        raise AssertionError(f"recon-cli-resume: resumed state {meta2}")
+    if (first_launches, launches - first_launches, flash) != (want_first, want_resumed, 0):
+        raise AssertionError(f"recon-cli-resume: launches {first_launches}, {launches - first_launches}, flash "
+                             f"{flash}; want {want_first}, {want_resumed}, 0")
+    model, _ = load_volumetric_model(resumed / "saved_models" / "model_final.pth", device="cuda")
+    if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all():
+        raise AssertionError("recon-cli-resume: the resumed model_final.pth holds no finite 160^3 grid")
+    return launches
+
+
+STREAM_ITERS = 12
+
+
+def phase_recon_streaming(dev, workdir: Path) -> int:
+    """One stage of the 400^2 scene through the trainer on the exact route
+    at the recon CLI's final-stage settings (160^3, 32,768 rays of 256
+    samples a step): RAM-backed, then memmap-backed (`cache_backing=
+    "memmap"`, pixels gathered on the host every step), then RAM-backed
+    again. The exact ray-batch step composites with the plain accumulate,
+    as the JAX step does (its render takes no fused-kernel branch), so the
+    compositing kernel launches 0 times here. ms/step is each stage's synced
+    training time over its steps, the first step's warm-up included.
+    Returns the compositing launches of the three runs."""
+    scene = workdir / "scene"
+    runs = {}
+    reset_counts()  # counts from here to the end of the three runs
+    for name, backing in (("ram", "ram"), ("memmap", "memmap"), ("ram_again", "ram")):
+        ds = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True,
+                                device=dev, cache_backing=backing)
+        model = VolumetricModel(make_recon_grid(GRID_RES, dev), RECON_RCFG.replace(camera_bounds=ds.camera_bounds))
+        before = comp.LAUNCHES
+        out, records = logged(lambda: train_recon.train_sh_vox_grid_vol_mod_with_posed_images(
+            model, ds, workdir / f"stream_{name}", num_stages=1, num_iterations_per_stage=STREAM_ITERS,
+            ray_batch_size=32768, image_batch_cache_size=8, fast_debug_mode=True))
+        stage = next(r for r in records if hasattr(r, "stage_training_s"))
+        runs[name] = dict(streaming=ds.streaming, ms_per_step=stage.stage_training_s / STREAM_ITERS * 1e3,
+                          composite_launches=comp.LAUNCHES - before,
+                          finite=bool(torch.isfinite(out.grid.densities).all()))
+    log("recon-streaming", iterations=STREAM_ITERS, rays_per_step=32768, samples_per_ray=RECON_RCFG.num_samples_per_ray,
+        runs=runs, memmap_over_ram=runs["memmap"]["ms_per_step"] / runs["ram"]["ms_per_step"],
+        flash_launches=fa.LAUNCHES)
+    for name, r in runs.items():
+        if r["streaming"] != (name == "memmap") or r["composite_launches"] != 0 or not r["finite"]:
+            raise AssertionError(f"recon-streaming: {name} {r}")
+    return comp.LAUNCHES
 
 
 def frame_stats(records) -> dict:
@@ -904,29 +1057,36 @@ def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
     if not all(equal.values()) or not isinstance(loaded.tokenizer, CLIPTokenizer):
         raise AssertionError(f"the loaded SD {version} differs from its source: {equal}")
     if version != SD_VERSION:
-        plain_attention_64(dev, loaded)
+        attention_64(dev, loaded)
+        fa.REFERENCE_ON_CUDA = 0  # the comparison above called the plain version; the breakdown must not
         refine_breakdown(dev, loaded, workdir)
     del src, loaded, pairs
     torch.cuda.empty_cache()
     return root
 
 
-def plain_attention_64(dev, sd: StableDiffusion) -> None:
+def attention_64(dev, sd: StableDiffusion) -> None:
     """SD 1.x's 64^2 self-attention (head_dim 40: outside the flash gate and
-    the kernel) in the plain version: time and transient memory per call."""
+    the kernel): the library SDPA that the UNet calls there, against the
+    plain version it called before; time and transient memory per call."""
     heads = sd.config.unet.attention_head_dim[0]
     width = sd.config.unet.block_out_channels[0]
     shape = (2, 4096, heads, width // heads)
     q, k, v = (torch.randn(shape, device=dev, dtype=torch.bfloat16) for _ in range(3))
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention_reference(q, k, v)
-    torch.cuda.synchronize()
-    transient = (torch.cuda.max_memory_allocated() - base) / 2**30
-    ms = time_ms(lambda: fa.flash_attention_reference(q, k, v), iters=10, warmup=2)
-    log("plain-attention-64", shape=list(shape), gated_to_flash=flash_self_attention_enabled(shape[1], shape[3]),
-        ms=ms, transient_gib=transient, calls_per_unet_pass=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # the UNet's call: [B, h, Q, d] views
+    calls = {"sdpa": lambda: F.scaled_dot_product_attention(qt, kt, vt),
+             "plain": lambda: fa.flash_attention_reference(q, k, v)}
+    stats = {}
+    for name, fn in calls.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        stats[f"{name}_transient_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        stats[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
+    log("attention-64", shape=list(shape), gated_to_flash=flash_self_attention_enabled(shape[1], shape[3]),
+        calls_per_unet_pass=5, **stats)
 
 
 def refine_breakdown(dev, sd: StableDiffusion, workdir: Path) -> None:
@@ -1031,6 +1191,45 @@ def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
     return counts
 
 
+REFINE_K, REFINE_K_ITERS = 10, 20
+
+
+def phase_refine_kstep(dev, workdir: Path, snapshot14: Path) -> dict:
+    """The refine CLI at SD 1.4's published widths with --steps_per_call 10
+    over 20 iterations (two calls; feedback on the first and the last, 5
+    launches each), then the graph cut and merge; then the same at
+    --steps_per_call 1 for the comparison. Returns each run's (flash,
+    compositing) launches."""
+    recon = workdir / "cli_out" / "saved_models" / "model_final.pth"
+    edited = workdir / "edit-cli" / "saved_models" / "model_final.pth"
+    counts, stats = {}, {}
+    for k in (REFINE_K, 1):
+        name = "refine-kstep" if k > 1 else "refine-k1"
+        out = workdir / name
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here to the end of this run
+        _, records = logged(refine_cli.main, [
+            "-d", str(workdir / "scene"), "-i", str(edited), "-r", str(recon), "-o", str(out),
+            "-p", "a dog wearing a party hat", "-eidx", "4 5", "--data_downsample_factor", "1",
+            "--sd_weights_dir", str(snapshot14), "--num_iterations_per_stage", str(REFINE_K_ITERS),
+            "--steps_per_call", str(k), "--device", str(dev),
+        ])
+        counts[name] = (fa.LAUNCHES, comp.LAUNCHES)
+        done = next(r for r in records if hasattr(r, "time_training"))
+        refined, _ = load_volumetric_model(out / "saved_models" / "model_final_refined.pth", device=dev)
+        keep = torch.unique(refined.grid.attn).tolist()
+        stats[name] = dict(ms_per_iteration=done.time_training / REFINE_K_ITERS * 1e3, graph_cut_s=done.graph_cut_s,
+                           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[name][0],
+                           composite_launches=counts[name][1], keep_values=keep)
+        if counts[name] != (0, 2 * REFINE_K_ITERS + 5 * 2) or not set(keep) <= {-10.0, -5.0, 0.0}:
+            raise AssertionError(f"{name}: launches {counts[name]}, keep grid {keep}")
+    log("refine-kstep", k=REFINE_K, iterations=REFINE_K_ITERS, runs=stats,
+        ms_per_iteration_note="time_training / iterations; the first call's warm-up included",
+        ratio_k10_over_k1=stats["refine-kstep"]["ms_per_iteration"] / stats["refine-k1"]["ms_per_iteration"])
+    return counts
+
+
 def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> tuple:
     """The edit CLI with --do_refinement and --post_process_scc; returns its
     (flash, compositing) launches."""
@@ -1119,10 +1318,15 @@ def build_all() -> None:
 
 
 def timed(name: str, fn, *args):
-    """Run one phase; print its seconds."""
+    """Run one phase; print its seconds. Every phase but the flash kernel's
+    check (which holds the kernel against it) must leave the plain attention
+    uncalled on the card."""
+    fa.REFERENCE_ON_CUDA = 0
     t0 = time.perf_counter()
     out = fn(*args)
-    log("phase-seconds", name=name, seconds=time.perf_counter() - t0)
+    log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=fa.REFERENCE_ON_CUDA)
+    if name != "flash-kernel" and fa.REFERENCE_ON_CUDA != 0:
+        raise AssertionError(f"{name}: the plain attention ran {fa.REFERENCE_ON_CUDA} times on the card")
     return out
 
 
@@ -1145,9 +1349,16 @@ def main() -> int:
     by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
         work = Path(tmp)
-        comp_row["launches"] = timed("recon-main-path", phase_recon_main, dev, work)
+        comp_row["launches"], recon_ctx = timed("recon-main-path", phase_recon_main, dev, work)
         by_path["recon"] = {"flash_attn_fwd": 0, "composite_fwd": comp_row["launches"]}
+        by_path["recon-kstep"] = {"flash_attn_fwd": 0, "composite_fwd": timed("recon-kstep", phase_recon_kstep,
+                                                                              recon_ctx)}
+        del recon_ctx
         by_path["recon-cli"] = {"flash_attn_fwd": 0, "composite_fwd": timed("recon-cli", phase_recon_cli, work)}
+        by_path["recon-cli-resume"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
+            "recon-cli-resume", phase_recon_cli_resume, work)}
+        by_path["recon-streaming"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
+            "recon-streaming", phase_recon_streaming, dev, work)}
         for name, shear_warp in (("render-cli-exact", False), ("render-cli-shear-warp", True)):
             by_path[name] = {"flash_attn_fwd": 0, "composite_fwd": timed(name, phase_render_cli, work, shear_warp)}
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
@@ -1156,6 +1367,8 @@ def main() -> int:
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         snapshot14 = timed("sd14-weights", phase_sd_weights, dev, work, "1.4")
         for name, (flash, composite) in timed("refine-cli", phase_refine_cli, dev, work, snapshot14).items():
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        for name, (flash, composite) in timed("refine-kstep", phase_refine_kstep, dev, work, snapshot14).items():
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         flash, composite = timed("edit-refine", phase_edit_refine, dev, work, snapshot, snapshot14)
         by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}

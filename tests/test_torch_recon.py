@@ -446,7 +446,7 @@ def test_cli_tiny_end_to_end(tiny_scene, tmp_path):
     """The CLI module on the CPU: 2 stages x 3 shear-warp iterations with
     the fused kernel's plain version, ending in model_final.pth, which both
     packages read back; the tester's PSNR/SSIM on the held-out split; a run
-    at the default fast_debug_mode; steps_per_call > 1 raises."""
+    at the default fast_debug_mode; two steps a call."""
     out = tmp_path / "out"
     tcli.main([
         "-d", str(tiny_scene), "-o", str(out), "--grid_dims", "16", "16", "16", "--num_stages", "2",
@@ -470,5 +470,11 @@ def test_cli_tiny_end_to_end(tiny_scene, tmp_path):
                "8", "--num_iterations_per_stage", "1", "--render_num_samples_per_ray", "64", "--device", "cpu"])
     assert (tmp_path / "default" / "camera_rays.png").exists()
     assert (tmp_path / "default" / "training_logs" / "rendered_output" / "default_iter_1.png").exists()
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        tcli.main(["-d", str(tiny_scene), "-o", str(out), "--fast_debug_mode", "True", "--steps_per_call", "2", "--device", "cpu"])
+    # two steps a call: 3 iterations are a call of 2 and one of 1, each
+    # ending in a snapshot (the first call and the last)
+    kstep = tmp_path / "kstep"
+    tcli.main(["-d", str(tiny_scene), "-o", str(kstep), "--num_stages", "1", "--grid_dims", "8", "8", "8",
+               "--num_iterations_per_stage", "3", "--fast_debug_mode", "True", "--steps_per_call", "2",
+               "--device", "cpu"])
+    assert sorted(p.name for p in (kstep / "saved_models").glob("model_stage_*")) == [
+        "model_stage_1_iter_2.pth", "model_stage_1_iter_3.pth"]

@@ -352,8 +352,8 @@ def tiny_run(tmp_path_factory):
 def test_refine_and_segment_clis_tiny_end_to_end(tiny_run):
     """The refine CLI (3 shear-warp iterations, feedback and snapshots every
     2) and the segment CLI on its attention grids: checkpoints that both
-    packages load, the keep grid, diagnostics PNGs; the unported flags
-    raise; a short dataset-pose run."""
+    packages load, the keep grid, diagnostics PNGs; `--num_devices > 1`
+    raises; two iterations a call; a short dataset-pose run."""
     root, scene, _ = tiny_run
     recon, edit = root / "recon" / "saved_models" / "model_final.pth", root / "edit" / "saved_models" / "model_final.pth"
     args = ["-d", str(scene), "-i", str(edit), "-r", str(recon), "-p", "a dog wearing a hat", "-eidx", "4 5",
@@ -385,9 +385,14 @@ def test_refine_and_segment_clis_tiny_end_to_end(tiny_run):
     assert torch.equal(seg.grid.attn, refined.grid.attn) and torch.equal(seg.grid.densities, refined.grid.densities)
     assert {"attn_final_attn_iter_0.png", "sds_refined_iter_0.png", "scatter3d_locations_0.png"} <= {
         p.name for p in (root / "seg" / "training_logs" / "rendered_output").iterdir()}
-    for extra in (["--steps_per_call", "2"], ["--num_devices", "2"]):
-        with pytest.raises(NotImplementedError, match=extra[0][2:]):
-            trefine_cli.main(args + ["-o", str(root / "x")] + extra)
+    with pytest.raises(NotImplementedError, match="num_devices"):
+        trefine_cli.main(args + ["-o", str(root / "x"), "--num_devices", "2"])
+    # two iterations a call: 3 iterations are calls ending at 2 and 3, and the
+    # JAX K-step cadence snapshots both (step % 2 < 2), never iteration 1
+    trefine_cli.main(args + ["-o", str(root / "refine_k2"), "--num_iterations_per_stage", "3", "--steps_per_call", "2",
+                             "--save_frequency", "2"])
+    assert sorted(p.name for p in (root / "refine_k2" / "saved_models").glob("model_edit_iter_*")) == [
+        "model_edit_iter_2.pth", "model_edit_iter_3.pth"]
     # dataset-pose mode (shear-warp, the dataset poses' guard), fast debug: no feedback
     trefine_cli.main(args + ["-o", str(root / "refine_data"), "--num_iterations_per_stage", "2", "--data_pose_mode", "True",
                              "--save_frequency", "5"])

@@ -133,3 +133,38 @@ def test_config_fields_match():
     assert [f.name for f in dataclasses.fields(TRenderConfig)] == [
         f.name for f in dataclasses.fields(JRenderConfig)
     ]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_density_noise_matches_jax(fused):
+    """Density noise (std 0.5) on the streamed tail and the monolithic tail
+    (fused compositing): the JAX key's [N, S] draw passed in as
+    `density_noise`, from a positive and a negative marching direction (the
+    streamed tail reads the draw reversed there). Colour, the diffuse colour
+    (which shares the draw), depth and acc in f32; the noise changes the
+    render, and without a draw or a generator the call raises."""
+    jg, tg = _grids("float32")
+    jcfg = JCFG.replace(stochastic_density_noise_std=0.5, use_fused_kernel=fused)
+    tcfg = TCFG.replace(stochastic_density_noise_std=0.5, use_fused_kernel=fused)
+    directions = set()
+    for i, (yaw, pitch) in enumerate(SIX_POSES[:3:2]):  # the same axis, both directions
+        pose = pose_spherical(yaw, pitch, 4.0)
+        key = jax.random.PRNGKey(10 + i)
+        jout, jgeom = jsw.render_shear_warp(jg, JPose(*pose), jcfg, base_hw=BASE, key=key, with_diffuse=True)
+        noise = torch.from_numpy(np.array(jax.random.normal(key, (BASE[0] * BASE[1], RES), jnp.float32)))
+        tout, tgeom = tsw.render_shear_warp(tg, TPose(*pose), tcfg, base_hw=BASE, with_diffuse=True,
+                                            density_noise=noise)
+        assert tgeom.perm_index == int(jgeom.perm_index)
+        directions.add(tgeom.perm_index % 2)
+        for name, t, j in (("colour", tout.colour, jout.colour),
+                           ("diffuse", tout.extra["diffuse_colour"], jout.extra["diffuse_colour"]),
+                           ("depth", tout.depth, jout.depth),
+                           ("acc", tout.extra["accumulated_weight"], jout.extra["accumulated_weight"])):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4, atol=1e-4, err_msg=name)
+        clean, _ = tsw.render_shear_warp(tg, TPose(*pose), TCFG.replace(use_fused_kernel=fused), base_hw=BASE)
+        assert float((clean.colour - tout.colour).abs().max()) > 1e-2
+    assert directions == {0, 1}
+    with pytest.raises(ValueError, match="Generator"):
+        tsw.render_shear_warp(tg, TPose(*pose), tcfg, base_hw=BASE)
+    gen_out, _ = tsw.render_shear_warp(tg, TPose(*pose), tcfg, base_hw=BASE, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(gen_out.colour).all()

@@ -108,6 +108,45 @@ def test_flash_reference_matches_jax_sdpa(shape, lk):
     np.testing.assert_array_equal(out, flash_attention_reference(tq, tk, tv).numpy())
 
 
+def _no_plain_attention(*args, **kwargs):
+    raise AssertionError("the plain attention was reached")
+
+
+@pytest.mark.parametrize(
+    "q_len,kv_len,heads,head_dim",
+    [
+        (1024, None, 10, 64),  # SD 2.x's 32x32 self-attention: below the flash gate
+        (1024, 77, 10, 64),  # its cross-attention over the 77 text tokens
+        (1024, None, 8, 40),  # SD 1.x's head_dim 40 (its 64x64 level has 4096 queries)
+    ],
+)
+def test_unet_attention_sdpa_route_matches_jax(q_len, kv_len, heads, head_dim, monkeypatch):
+    """A UNet CrossAttention that the flash gate does not admit goes to the
+    library's SDPA, as the JAX package's goes to
+    `jax.nn.dot_product_attention`: the module with the same parameters, in
+    f32, within 1e-5 of the JAX module; the plain version is not reached."""
+    from voxe_tpu.models.sd import unet as junet
+    from voxe_tpu_torch.models.sd import unet as tunet
+    from voxe_tpu_torch.models.sd.weights import from_flax_params
+    from voxe_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "flash_attention_reference", _no_plain_attention)
+    rng = np.random.default_rng(7)
+    width = heads * head_dim
+    x = rng.standard_normal((2, q_len, width)).astype(np.float32)
+    ctx = None if kv_len is None else rng.standard_normal((2, kv_len, 96)).astype(np.float32)
+    jm = junet.CrossAttention(heads)
+    args = (jnp.asarray(x),) if ctx is None else (jnp.asarray(x), jnp.asarray(ctx))
+    params = _numpy_params(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), *args))["params"], seed=8)
+    ref = jax.jit(lambda prm, *a: jm.apply({"params": prm}, *a))(params, *args)
+    tm = tunet.CrossAttention(width, width if ctx is None else 96, heads)
+    tm.load_state_dict(from_flax_params(params), strict=True)
+    assert not tunet.flash_self_attention_enabled(q_len, head_dim)
+    with torch.no_grad():
+        out = tm(torch.from_numpy(x), None if ctx is None else torch.from_numpy(ctx))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
 def test_tokenizer_and_schedule_copies():
     jt, tt = JTok(1024), TTok(1024)
     for prompt in ("a dog made of yarn, side view", "", "  Two   words "):
@@ -158,7 +197,13 @@ def test_vae_encode_and_decode_match(pair):
     np.testing.assert_allclose(_nhwc(dec), np.asarray(dec_ref), rtol=1e-3, atol=1e-3)
 
 
-def test_unet_matches(pair):
+def test_unet_matches(pair, monkeypatch):
+    """The tiny UNet's forward against JAX, with `flash_attention_reference`
+    patched to raise: every attention reaches the library's SDPA (or, on a
+    card, the flash kernel)."""
+    from voxe_tpu_torch.ops import flash_attention as fa
+
+    monkeypatch.setattr(fa, "flash_attention_reference", _no_plain_attention)
     jsd, tsd = pair
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)

@@ -136,13 +136,6 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
                 "--do_refinement with real SD weights needs --sd_refine_weights_dir pointing at a "
                 "converted SD **1.4** snapshot (refinement uses 1.4)"
             )
-        if config.steps_per_call > 1:
-            # the refinement would run one iteration per call with the
-            # per-iteration snapshot and feedback cadence, not the fused one
-            parser.error(
-                "--do_refinement with --steps_per_call > 1 needs the fused refinement "
-                "(K refinement iterations per call), which is not ported yet"
-            )
     if config.multihost or config.num_devices > 1:
         raise NotImplementedError(
             "--multihost / --num_devices > 1: multi-device edits (the data-parallel mesh) are not ported yet"
@@ -246,6 +239,7 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
             sd_version="tiny" if config.sd_version == "tiny" else "1.4",
             use_shear_warp=config.use_shear_warp,
             shear_warp_base_res=config.shear_warp_base_res,
+            steps_per_call=config.steps_per_call,
         )
     if config.post_process_scc:
         from voxe_tpu_torch.seg.components import scc_post_process

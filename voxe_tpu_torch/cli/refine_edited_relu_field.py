@@ -10,8 +10,9 @@ argparse, plus `--device`).
         -p "a dog wearing a party hat" -eidx "4 5" [--sd_weights_dir sd14] [--device cpu]
 
 `--sd_weights_dir` points at a local HF snapshot of SD 1.4; without it the
-SD weights are seeded random. `--steps_per_call > 1`, `--multihost` and
-`--num_devices > 1` raise (not ported). `--hf_auth_token`, `--num_workers`
+SD weights are seeded random. `--steps_per_call K` runs K shear-warp
+iterations a call in random-pose mode. `--multihost` and `--num_devices > 1`
+raise (not ported). `--hf_auth_token`, `--num_workers`
 and the wandb flags are accepted and unused, as in the JAX CLI.
 """
 from __future__ import annotations
@@ -100,8 +101,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     config = build_parser().parse_args(argv)
-    if config.steps_per_call > 1:
-        raise NotImplementedError("--steps_per_call > 1: the fused refinement multi-step is not ported yet")
     if config.multihost or config.num_devices > 1:
         raise NotImplementedError("--multihost / --num_devices > 1: multi-device refinement is not ported yet")
     check_device(config.device)
@@ -148,6 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         sd_weights_dir=Path(config.sd_weights_dir) if config.sd_weights_dir else None,
         use_shear_warp=config.use_shear_warp,
         shear_warp_base_res=config.shear_warp_base_res,
+        steps_per_call=config.steps_per_call,
     )
 
 

@@ -5,8 +5,11 @@ flag names and defaults, parsed with argparse, plus `--device`).
     python -m voxe_tpu_torch.cli.train_sh_based_voxel_grid_with_posed_images \\
         -d scene -o out --fast_debug_mode True [--device cpu]
 
-A flag whose feature is not ported yet raises with its name when set away
-from its default.
+`--steps_per_call K` runs K steps a call, `--resume` continues from a
+`training_state_latest.pth` of either package, `--coarse_stages_on_cpu True`
+trains every stage but the last on the CPU, and a scene that decodes to more
+than 4 GiB streams its pixels from a memmap. `--multihost` and
+`--num_devices > 1` raise (not ported).
 """
 from __future__ import annotations
 

@@ -2,15 +2,18 @@
 (counterpart of voxe_tpu/data/dataset.py, eager mode).
 
 Images decode once with Pillow (resized with `Image.BILINEAR` when a
-downsample factor asks for it, exactly as the JAX package does) into a dense
-[N, H, W, 3] float32 array; `device_arrays()` puts images and poses on the
-dataset's device once. Batches are index arrays drawn from a numpy
-Generator. Not ported yet: the memmap-backed streaming mode (a scene above
-`max_ram_gib` raises).
+downsample factor asks for it, exactly as the JAX package does) into a
+[N, H, W, 3] float32 array: in RAM, or, with `cache_backing="memmap"` (and
+with "auto" when the decoded scene exceeds `max_ram_gib`), into a
+`np.memmap` in a temporary file. A RAM-backed scene goes to the dataset's
+device once (`device_arrays()`); a memmap-backed one is `streaming`: the
+trainers gather each step's pixels on the host (`sample_pixels`). Batches
+are index arrays drawn from a numpy Generator.
 """
 from __future__ import annotations
 
 import json
+import tempfile
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -53,7 +56,9 @@ class PosedImagesDataset:
         max_ram_gib: float = 4.0,
         device="cuda",
     ) -> None:
-        """`device` holds the images when `cache_on_device` (else the CPU)."""
+        """`device` holds the images when `cache_on_device` (else the CPU).
+        `cache_backing`: "ram", "memmap" (decode to disk: bounded host RAM)
+        or "auto" (memmap above `max_ram_gib` of decoded float32)."""
         images_dir, camera_params_json = Path(images_dir), Path(camera_params_json)
         if not images_dir.exists():
             raise FileNotFoundError(f"Images dir doesn't exist: {images_dir}")
@@ -89,12 +94,17 @@ class PosedImagesDataset:
         backing = cache_backing
         if backing == "auto":
             backing = "memmap" if decoded_gib > max_ram_gib else "ram"
-        if backing != "ram":
-            raise NotImplementedError(
-                f"cache_backing={backing!r} ({decoded_gib:.1f} GiB decoded): the streaming "
-                "dataset mode is not ported yet"
-            )
-        self._images = np.empty((n, h, w, 3), dtype=np.float32)
+        if backing not in ("ram", "memmap"):
+            raise ValueError(f"cache_backing must be 'ram', 'memmap' or 'auto', got {cache_backing!r}")
+        self._streaming = backing == "memmap"
+        self._memmap_file = None
+        if self._streaming:
+            self._memmap_file = tempfile.NamedTemporaryFile(prefix="voxe_dataset_", suffix=".mm")
+            self._images = np.memmap(self._memmap_file.name, dtype=np.float32, mode="w+", shape=(n, h, w, 3))
+            log.info(f"dataset: {decoded_gib:.2f} GiB decoded -> memmap cache ({self._memmap_file.name}); "
+                     "trainers stream per-step pixel batches")
+        else:
+            self._images = np.empty((n, h, w, 3), dtype=np.float32)
         poses, directions = [], []
         for i, path in enumerate(self._image_file_paths):
             with Image.open(path) as im:
@@ -114,7 +124,7 @@ class PosedImagesDataset:
 
     @property
     def images(self) -> np.ndarray:
-        """[N, H, W, 3] float32 (host)."""
+        """[N, H, W, 3] float32 (host; a memmap when streaming: index it)."""
         return self._images
 
     @property
@@ -128,10 +138,25 @@ class PosedImagesDataset:
 
     @property
     def streaming(self) -> bool:
-        return False
+        """True when the decoded scene is memmap-backed: trainers gather each
+        step's pixels on the host instead of caching the scene on the device."""
+        return self._streaming
+
+    def sample_pixels(self, flat_indices: np.ndarray, image_indices: np.ndarray) -> np.ndarray:
+        """[R, 3] float32 pixels gathered on the host: pixel `flat_indices[k]`
+        (row-major in its frame) of frame `image_indices[k]`."""
+        w = self._camera_intrinsics.width
+        rows, cols = flat_indices // w, flat_indices % w
+        return np.ascontiguousarray(self._images[image_indices, rows, cols]).astype(np.float32)
 
     def device_arrays(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(images, poses) as tensors on the dataset's device (once)."""
+        """(images, poses) as tensors on the dataset's device (once); a
+        streaming dataset refuses."""
+        if self._streaming:
+            raise RuntimeError(
+                "streaming (memmap-backed) dataset: the decoded scene exceeds the cache budget; "
+                "use sample_pixels() and the poses per step instead of caching the scene on the device"
+            )
         if self._device_arrays is None:
             dev = self._device if self._cache_on_device else "cpu"
             self._device_arrays = (

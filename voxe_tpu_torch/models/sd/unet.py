@@ -9,9 +9,11 @@ Self-attention goes to the port's hand-written flash kernel exactly where
 voxe_tpu's `_flash_self_attention_enabled` admits the shape (q_len >= 2048,
 q_len % 512 == 0, head_dim in {64, 128}); that is SD 2.x's 64x64 level, five
 calls per UNet pass. Every other attention — cross-attention, the 32x32
-level, and SD 1.x's 64x64 level (head_dim 40) — is a plain matmul +
-softmax. The gate is the JAX package's, kept as it is; re-deciding it on
-the card is later work.
+level, and SD 1.x's 64x64 level (head_dim 40) — goes to the library's
+`F.scaled_dot_product_attention`, as the JAX package calls
+`jax.nn.dot_product_attention` there: q, k and v in one dtype, the default
+1/sqrt(d) scale. The gate is the JAX package's, kept as it is; re-deciding
+it on the card is later work.
 
 Attention capture (the JAX package's `sow` into "attn_maps"): given a list
 `attn_store`, each cross-attention of a transformer tagged "down", "mid" or
@@ -30,7 +32,7 @@ from torch import nn
 
 from voxe_tpu_torch.models.sd.config import UNetConfig
 from voxe_tpu_torch.models.sd.norms import GroupNorm
-from voxe_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from voxe_tpu_torch.ops.flash_attention import flash_attention
 
 
 def flash_self_attention_enabled(q_len: int, head_dim: int) -> bool:
@@ -102,7 +104,10 @@ class CrossAttention(nn.Module):
         elif not is_cross and flash_self_attention_enabled(Q, head_dim):
             out = flash_attention(q, k, v, scale)
         else:
-            out = flash_attention_reference(q, k, v, scale)
+            dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+            out = F.scaled_dot_product_attention(
+                *(x.transpose(1, 2).to(dt) for x in (q, k, v))
+            ).transpose(1, 2)  # [B, h, Q, d] -> [B, Q, h, d]
         return self.to_out_0(out.reshape(B, Q, C))
 
 

@@ -14,7 +14,9 @@ through TMA descriptors that the C entry point encodes on every call
 Layout is [B, Q, h, d] (the UNet's own layout before a head transpose), bf16
 in and out, d in {64, 128}. A CPU tensor goes to `flash_attention_reference`;
 a CUDA tensor goes to the kernel or the call raises — there is no fallback.
-`LAUNCHES` counts kernel launches and nothing else.
+`LAUNCHES` counts kernel launches and nothing else; `REFERENCE_ON_CUDA`
+counts calls of the plain version on a CUDA tensor, which no path of the
+port makes (the UNet's other attention goes to the library's SDPA).
 """
 from __future__ import annotations
 
@@ -33,11 +35,12 @@ _LIB = CudaLibrary(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
 )
 LAUNCHES = 0  # kernel launches since import (or the last reset)
+REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import (or the last reset)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, REFERENCE_ON_CUDA
+    LAUNCHES = REFERENCE_ON_CUDA = 0
 
 
 def build(verbose: bool = False):
@@ -62,8 +65,11 @@ def encode_us(q, k, v, out, iters: int = 1000) -> float:
 def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: scores and softmax in f32, output in q's dtype.
     q [B, Q, h, d], k/v [B, K, h, d] -> [B, Q, h, d]."""
+    global REFERENCE_ON_CUDA
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        REFERENCE_ON_CUDA += 1
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)

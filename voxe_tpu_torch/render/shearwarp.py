@@ -34,7 +34,12 @@ refinement stage's edit and object grids render as one two-channel pass.
 output: the base composite, then a bilinear gather at each screen pixel's
 base coordinates (`sample_base_image`).
 
-Not ported yet: density noise (raises).
+Density noise (`config.stochastic_density_noise_std > 0`) adds std times one
+standard-normal draw per sample to the masked density, before the weights:
+an [N, S] draw in marching order, from a `torch.Generator` or passed in as
+`density_noise`, which both tails read the same way (the streamed tail
+reverses it into volume order under `flip_k`), and which the diffuse
+composite shares, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -132,6 +137,7 @@ def _streamed_composite(
     background_value: float = 1.0,
     diffuse_only: bool = False,
     num_shade_channels: Optional[int] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Slice-streamed resample + composite; every per-sample tensor is
     slice-major ([S, N] / [S, U, V, C]). With `flip_k` the s axis runs in
@@ -139,7 +145,8 @@ def _streamed_composite(
     the deltas flip instead of the volume. `with_diffuse` also composites the
     degree-0 (diffuse) shading into extra["diffuse_colour"]; `diffuse_only`
     shades the colour itself at degree 0. `num_shade_channels` overrides the
-    channel count (the attention field's C; 3 or 1 by default)."""
+    channel count (the attention field's C; 3 or 1 by default). `noise`
+    ([N, S] in marching order, scaled) is added to the masked density."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -154,6 +161,8 @@ def _streamed_composite(
     dens_rs = torch.bmm(tmp_d, Wb_dt.transpose(1, 2)).float()  # [S, U, V]
     dens = d_post(dens_rs).reshape(S, N)
     dens = torch.where(inside_sn, dens, torch.zeros((), device=dens.device))
+    if noise is not None:  # after the mask, as the exact path noises in accumulate
+        dens = dens + (noise.flip(1) if flip_k else noise).t()
 
     dd = t_sn[1:] - t_sn[:-1]  # [S-1, N]
     if flip_k:
@@ -238,11 +247,13 @@ def _monolithic_composite(
     background_value: float = 1.0,
     diffuse_only: bool = False,
     num_shade_channels: Optional[int] = None,
+    noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Resample every slice onto the base lattice ([U*V, S, C+1]), shade,
     and composite with accumulate(final_delta="slab"), through the fused
     kernel when `config.use_fused_kernel`. The density stays f32 through the
-    weights math; the radiance stays in the volume dtype."""
+    weights math; the radiance stays in the volume dtype. `noise` ([N, S],
+    scaled) is added to the masked density that both composites read."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -253,6 +264,8 @@ def _monolithic_composite(
     feats = ACTIVATIONS[grid_config.feature_postactivation](resampled[..., :-1])
     dens = ACTIVATIONS[grid_config.density_postactivation](resampled[..., -1].float())
     dens = torch.where(inside, dens, torch.zeros((), device=dens.device))
+    if noise is not None:
+        dens = dens + noise
 
     num_channels = _shade_channels(C1, num_shade_channels)
     sh_coeffs = feats.reshape(N, S, num_channels, -1)
@@ -294,6 +307,7 @@ def _render_canonical(
     background_value: float = 1.0,
     diffuse_only: bool = False,
     num_shade_channels: Optional[int] = None,
+    noise: Optional[torch.Tensor] = None,
 ):
     """Core shear-warp in canonical orientation. Returns (RenderOut over
     [U*V] base pixels, dirs, lo, hi)."""
@@ -352,7 +366,7 @@ def _render_canonical(
         out = _streamed_composite(
             vol, Wa, Wb, t_sn, dirs, inside_sn, grid_config, config.white_bkgd, flip_k,
             with_diffuse=with_diffuse, background_value=background_value, diffuse_only=diffuse_only,
-            num_shade_channels=num_shade_channels,
+            num_shade_channels=num_shade_channels, noise=noise,
         )
     else:
         inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S)
@@ -360,7 +374,7 @@ def _render_canonical(
         out = _monolithic_composite(
             vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse,
             background_value=background_value, diffuse_only=diffuse_only,
-            num_shade_channels=num_shade_channels,
+            num_shade_channels=num_shade_channels, noise=noise,
         )
     return out, dirs, lo, hi
 
@@ -375,6 +389,8 @@ def render_shear_warp(
     diffuse_only: bool = False,
     attn_mode: bool = False,
     use_orig_densities: bool = False,
+    generator: Optional[torch.Generator] = None,
+    density_noise: Optional[torch.Tensor] = None,
 ) -> Tuple[RenderOut, BaseImageGeometry]:
     """Render the base-plane image of `voxel_grid` seen from `pose`.
 
@@ -387,12 +403,13 @@ def render_shear_warp(
     monolithic tail, where the compositing kernel lives. `attn_mode` renders
     the attention field's C channels (each at degree 0) as the colour, over
     the frozen densities with `use_orig_densities`; the refinement stage
-    passes `background_value=0.0`."""
+    passes `background_value=0.0`. With `config.stochastic_density_noise_std
+    > 0` the density noise is `density_noise` ([U*V, S] standard normals in
+    marching order) or a draw from `generator`."""
     if with_diffuse and diffuse_only:
         raise ValueError("with_diffuse renders both colours; diffuse_only renders the degree-0 one as the colour")
     stream_composite = not getattr(config, "use_fused_kernel", False)
-    if getattr(config, "stochastic_density_noise_std", 0.0) > 0.0:
-        raise NotImplementedError("stochastic density noise is not ported yet")
+    noise_std = getattr(config, "stochastic_density_noise_std", 0.0)
     grid_dims = tuple(int(d) for d in voxel_grid.grid_dims)
 
     cfg = voxel_grid.config
@@ -436,12 +453,23 @@ def render_shear_warp(
         volp = volp.flip(0)  # the monolithic tail marches the reversed volume
     volp = volp.contiguous()
 
+    noise = None
+    if noise_std > 0.0:
+        shape = (base_hw[0] * base_hw[1], volp.shape[0])
+        if density_noise is None:
+            if generator is None:
+                raise ValueError("density noise needs a torch.Generator or density_noise")
+            density_noise = torch.randn(shape, generator=generator, device=generator.device)
+        if tuple(density_noise.shape) != shape:
+            raise ValueError(f"density_noise must be {list(shape)}, got {list(density_noise.shape)}")
+        noise = density_noise.to(dev, torch.float32) * noise_std
+
     out, dirs_w, lo2, hi2 = _render_canonical(
         volp, eye_g, vs, lo3, base_hw, config, cfg, unpermute_mat=M,
         flip_k=stream_composite and not positive,
         with_diffuse=with_diffuse, stream_composite=stream_composite,
         background_value=background_value, diffuse_only=diffuse_only,
-        num_shade_channels=num_shade_channels,
+        num_shade_channels=num_shade_channels, noise=noise,
     )
     geom = BaseImageGeometry(eye=eye_w, dirs=dirs_w, lo=lo2, hi=hi2, perm_index=branch)
     return out, geom

@@ -1,26 +1,33 @@
 """Reconstruction trainer: fit an SH voxel grid to posed images
 (counterpart of voxe_tpu/train/recon.py).
 
-Two steps, each one call that renders, takes the L1 losses, runs the
+Three steps, each one call that renders, takes the L1 losses, runs the
 backward and one Adam update of the grid in place:
 
 - the exact ray-batch step (`make_recon_train_step`): random pixels of an
   image batch, rays cast only for them, one grid query feeding both the
   full-SH and the diffuse (degree-0) composites;
+- the streaming step (`make_recon_train_step_streaming`): the same update
+  on pixels the host gathered from a memmap-backed dataset;
 - the shear-warp step (`make_recon_train_step_shearwarp`): one whole
   base-plane frame per step against targets splatted onto the base lattice
   once per stage (`warp_dataset_to_base`). With `use_fused_kernel` its two
   composites (specular and diffuse) go through the compositing kernel.
 
-The JAX package draws ray indices and jitter with `jax.random`; here they
-come from a `torch.Generator`, and tests may inject them. The image index of
-the shear-warp step is drawn from a numpy Generator, as in the JAX trainer.
-`train_sh_vox_grid_vol_mod_with_posed_images` runs the stage ladder; unless
-`fast_debug_mode`, it draws the camera rays once, renders feedback PNGs
-every `feedback_freq` steps and tests on the held-out set every `test_freq`
-steps, both left out of the training time. Not ported yet: `steps_per_call
-> 1`, `num_devices > 1`, streaming datasets, `coarse_stages_on_cpu` and
-`resume_from`.
+The K-step functions (`make_recon_train_multi_step_shearwarp`,
+`make_recon_train_multi_step`) run K of those steps a call, the JAX
+package's `steps_per_call`: a Python loop over the same step, since eager
+PyTorch has no scan to fuse them into. The JAX package draws ray indices,
+image batches and jitter with `jax.random`; here they come from a
+`torch.Generator`, and tests may inject them. The shear-warp image indices
+and the streaming step's pixels are drawn from a numpy Generator on the
+host, as in the JAX trainer. `train_sh_vox_grid_vol_mod_with_posed_images`
+runs the stage ladder; unless `fast_debug_mode`, it draws the camera rays
+once, renders feedback PNGs every `feedback_freq` steps and tests on the
+held-out set every `test_freq` steps, both left out of the training time.
+It resumes from a training-state file of either package, runs the coarse
+stages on the CPU when asked, and streams a memmap-backed stage. Not
+ported yet: `num_devices > 1`.
 """
 from __future__ import annotations
 
@@ -47,7 +54,12 @@ from voxe_tpu_torch.render.shearwarp import (
     screen_to_base,
     warp_image_to_base,
 )
-from voxe_tpu_torch.train.checkpointing import adam_state_tensors, save_training_state
+from voxe_tpu_torch.train.checkpointing import (
+    load_training_state,
+    read_training_state,
+    save_training_state,
+    training_state_arrays,
+)
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     CAMERA_BOUNDS,
@@ -173,6 +185,7 @@ def make_recon_train_step(
     signature: step(grid, images [N,H,W,3], poses [N,3,4], batch_indices [B],
                     generator, *, flat_idx=None, t_rand=None) -> metrics
     `flat_idx` ([R] into B*H*W) and `t_rand` ([R, S]) replace the draws."""
+    update = _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule)
 
     def step(grid, images, poses, batch_indices, generator=None, *, flat_idx=None, t_rand=None):
         batch_indices = torch.as_tensor(batch_indices, device=images.device)
@@ -182,6 +195,16 @@ def make_recon_train_step(
             flat_idx = torch.randint(0, total_pixels, (ray_batch_size,), generator=generator, device=generator.device)
         flat_idx = torch.as_tensor(flat_idx, device=images.device)
         pixels = batch_images.reshape(-1, 3)[flat_idx]
+        return update(grid, batch_poses, flat_idx, pixels, generator, t_rand)
+
+    return step
+
+
+def _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule):
+    """The exact update on a drawn ray batch: cast, render both composites,
+    L1 losses, backward, Adam."""
+
+    def update(grid, batch_poses, flat_idx, pixels, generator, t_rand):
         rays = cast_rays_at_indices(intrinsics, batch_poses, flat_idx)
         optimizer.zero_grad(set_to_none=True)
         out_spec, out_diff = render_specular_and_diffuse(grid, rays, render_config, generator, t_rand)
@@ -190,7 +213,80 @@ def make_recon_train_step(
         )
         return optimizer_step(optimizer, total, metrics, lr_schedule)
 
+    return update
+
+
+def make_recon_train_step_streaming(
+    intrinsics: CameraIntrinsics,
+    render_config: SHVoxGridRenderConfig,
+    optimizer: torch.optim.Optimizer,
+    apply_diffuse_render_regularization: bool = True,
+    lr_schedule=None,
+) -> Callable:
+    """The exact update for a streaming (memmap-backed) dataset: the host
+    drew the pixel indices and gathered their [R, 3] pixels; the card casts
+    the rays from the step's small pose block, renders, takes the backward
+    and runs Adam. Host arrays go over pinned and without blocking, so the
+    step adds no host sync.
+
+    signature: step(grid, batch_poses [B,3,4], flat_idx [R] (into B*H*W),
+                    pixels [R,3], generator=None, *, t_rand=None) -> metrics"""
+    update = _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule)
+
+    def step(grid, batch_poses, flat_idx, pixels, generator=None, *, t_rand=None):
+        dev = grid.densities.device
+        batch_poses, flat_idx, pixels = (_to_device(x, dev) for x in (batch_poses, flat_idx, pixels))
+        return update(grid, batch_poses, flat_idx, pixels, generator, t_rand)
+
     return step
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    """A host array or tensor on `dev`; to a card through pinned memory
+    without blocking the host."""
+    x = torch.as_tensor(x)
+    if dev.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(dev, non_blocking=True)
+    return x.to(dev)
+
+
+def make_recon_train_multi_step(
+    intrinsics: CameraIntrinsics,
+    render_config: SHVoxGridRenderConfig,
+    optimizer: torch.optim.Optimizer,
+    ray_batch_size: int,
+    num_train_images: int,
+    image_batch_size: int,
+    steps_per_call: int,
+    apply_diffuse_render_regularization: bool = True,
+    lr_schedule=None,
+) -> Callable:
+    """K exact ray-batch steps a call. Each step draws its image batch
+    ([image_batch_size] of `num_train_images`), its pixel indices and its
+    stratified jitter on the device, from `generator`.
+
+    signature: multi(grid, images, poses, generator=None, *,
+                     batch_indices [K, B]=None, flat_idx [K, R]=None,
+                     t_rand [K, R, S]=None) -> last step's metrics
+    The keyword arrays replace the draws."""
+    step = make_recon_train_step(
+        intrinsics, render_config, optimizer, ray_batch_size, apply_diffuse_render_regularization, lr_schedule
+    )
+
+    def multi(grid, images, poses, generator=None, *, batch_indices=None, flat_idx=None, t_rand=None):
+        metrics = {}
+        for i in range(steps_per_call):
+            if batch_indices is None:
+                batch = torch.randint(0, num_train_images, (image_batch_size,), generator=generator,
+                                      device=generator.device)
+            else:
+                batch = batch_indices[i]
+            metrics = step(grid, images, poses, batch, generator,
+                           flat_idx=None if flat_idx is None else flat_idx[i],
+                           t_rand=None if t_rand is None else t_rand[i])
+        return metrics
+
+    return multi
 
 
 def warp_dataset_to_base(images: torch.Tensor, poses, intrinsics: CameraIntrinsics, grid: VoxelGrid, base_hw):
@@ -221,10 +317,11 @@ def make_recon_train_step_shearwarp(
     base space against the pre-warped target, masked to its coverage.
 
     signature: step(grid, targets [N,U,V,3], masks [N,U,V], poses [N,3,4],
-                    image_idx) -> metrics"""
+                    image_idx, generator=None) -> metrics
+    `generator` draws the density noise when the config asks for it."""
     base_hw = tuple(base_hw)
 
-    def step(grid, targets, masks, poses, image_idx):
+    def step(grid, targets, masks, poses, image_idx, generator=None):
         image_idx = int(image_idx)
         target, mask, pose_rt = targets[image_idx], masks[image_idx], poses[image_idx]
         pose = CameraPose(rotation=pose_rt[:, :3], translation=pose_rt[:, 3:])
@@ -232,7 +329,8 @@ def make_recon_train_step_shearwarp(
         denom = torch.clamp(mask.sum() * NUM_COLOUR_CHANNELS, min=1.0)
         optimizer.zero_grad(set_to_none=True)
         out, _ = render_shear_warp(
-            grid, pose, render_config, base_hw=base_hw, with_diffuse=apply_diffuse_render_regularization
+            grid, pose, render_config, base_hw=base_hw, with_diffuse=apply_diffuse_render_regularization,
+            generator=generator,
         )
         img = out.colour.reshape(*base_hw, NUM_COLOUR_CHANNELS)
         dimg = out.extra["diffuse_colour"].reshape(*base_hw, NUM_COLOUR_CHANNELS) if (
@@ -245,10 +343,39 @@ def make_recon_train_step_shearwarp(
     return step
 
 
-def _unsupported(**options) -> None:
-    for name, (value, default) in options.items():
-        if value != default:
-            raise NotImplementedError(f"{name}={value!r} is not ported yet")
+def make_recon_train_multi_step_shearwarp(
+    render_config: SHVoxGridRenderConfig,
+    optimizer: torch.optim.Optimizer,
+    base_hw,
+    steps_per_call: int,
+    apply_diffuse_render_regularization: bool = True,
+    lr_schedule=None,
+) -> Callable:
+    """K shear-warp steps a call, each the single step above on its own
+    image. The K image indices are drawn on the host (the trainer's numpy
+    Generator), as in the JAX trainer.
+
+    signature: multi(grid, targets, masks, poses, image_idxs [K],
+                     generator=None) -> last step's metrics"""
+    step = make_recon_train_step_shearwarp(
+        render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule
+    )
+
+    def multi(grid, targets, masks, poses, image_idxs, generator=None):
+        idxs = [int(i) for i in np.asarray(image_idxs).reshape(-1)]
+        if len(idxs) != steps_per_call:
+            raise ValueError(f"image_idxs must hold {steps_per_call} indices, got {len(idxs)}")
+        metrics = {}
+        for idx in idxs:
+            metrics = step(grid, targets, masks, poses, idx, generator)
+        return metrics
+
+    return multi
+
+
+def _on(grid: VoxelGrid, dev: torch.device) -> VoxelGrid:
+    """The grid's tensors, detached, on `dev`."""
+    return grid.replace(densities=grid.densities.detach().to(dev), features=grid.features.detach().to(dev))
 
 
 def train_sh_vox_grid_vol_mod_with_posed_images(
@@ -288,16 +415,26 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     Each stage trains a grid of the stage's size on the dataset downsampled
     for it, with Adam at lr `learning_rate * stagewise_lr_decay_gamma **
     (stage - 1)` decayed by `lr_decay_gamma_per_stage` every
-    `lr_decay_steps_per_stage` updates, then upsamples the grid. Snapshots go
-    to `output_dir/saved_models`, ending with `model_final.pth`; feedback
-    PNGs to `output_dir/training_logs/rendered_output` (from
-    `render_feedback_pose`, by default the first test, else train, pose);
-    scalars to `training_logs/tensorboard` when tensorboardX imports."""
-    _unsupported(
-        num_devices=(num_devices, 1), resume_from=(resume_from, None),
-        steps_per_call=(steps_per_call, 1), coarse_stages_on_cpu=(coarse_stages_on_cpu, False),
-    )
-    del verbose_rendering, coarse_ray_batch_size
+    `lr_decay_steps_per_stage` updates, then upsamples the grid. A stage runs
+    exactly `num_iterations_per_stage` updates, `steps_per_call` a call (the
+    last call of a stage takes the rest). Snapshots go to
+    `output_dir/saved_models`, ending with `model_final.pth`, with the
+    training state in `training_state_latest.pth`; feedback PNGs to
+    `output_dir/training_logs/rendered_output` (from `render_feedback_pose`,
+    by default the first test, else train, pose); scalars to
+    `training_logs/tensorboard` when tensorboardX imports. Summary,
+    feedback, test and save run when the global step is a multiple of their
+    frequency, on a stage's first call and on its last.
+
+    `resume_from` (a training-state file of either package) fast-forwards the
+    grid up the ladder to the saved stage and continues after the saved
+    iteration. `coarse_stages_on_cpu` runs every stage but the last on the
+    CPU (with `coarse_ray_batch_size` rays when given). A memmap-backed
+    (streaming) stage gathers its pixels on the host and trains on the exact
+    renderer, one step a call."""
+    if num_devices != 1:
+        raise NotImplementedError(f"num_devices={num_devices!r}: multi-device training is not ported yet")
+    del verbose_rendering
     output_dir = Path(output_dir)
     model_dir = output_dir / "saved_models"
     logs_dir = output_dir / "training_logs"
@@ -320,6 +457,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     for stage in range(1, num_stages):
         cfg = dict(dataset_config)
         cfg["downsample_factor"] = base_downsample * (scale_factor**stage)
+        if coarse_stages_on_cpu:
+            cfg["device"] = "cpu"
         stagewise_datasets.insert(0, PosedImagesDataset(**cfg))
 
     # start from scratch at the coarsest stage: uniform random init
@@ -330,6 +469,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         densities=torch.rand(grid.densities.shape, generator=gen, device=dev) * (hi - lo) + lo,
         features=torch.rand(grid.features.shape, generator=gen, device=dev) * (hi - lo) + lo,
     )
+    generators = {dev.type: gen}
 
     if render_feedback_pose is None:
         pose0 = (test_dataset if test_dataset is not None else train_dataset).poses[0]
@@ -349,16 +489,44 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     log.info("beginning reconstruction training")
     time_training = 0.0
     global_step = 0
+    resume_meta = None
+    if resume_from is not None:
+        _, resume_meta = read_training_state(resume_from)
+        log.info(f"resuming from {resume_from}: stage {resume_meta['stage']}, "
+                 f"stage_iteration {resume_meta['stage_iteration']}")
+        global_step = int(resume_meta["global_step"])
+
     for stage in range(1, num_stages + 1):
+        if resume_meta is not None and stage < resume_meta["stage"]:
+            # fast-forward a finished stage: the grid follows the ladder
+            if stage != num_stages:
+                with torch.no_grad():
+                    grid = scale_voxel_grid(grid, stagewise_sizes[stage])
+            continue
+        on_cpu = coarse_stages_on_cpu and stage != num_stages
+        stage_dev = torch.device("cpu") if on_cpu else dev
+        if on_cpu:
+            log.info(f"stage {stage} runs on the CPU (coarse_stages_on_cpu)")
+        grid = _on(grid, stage_dev)
+        stage_gen = generators.setdefault(stage_dev.type, torch.Generator(device=stage_dev).manual_seed(seed))
         stage_dataset = stagewise_datasets[stage - 1]
         intr = stage_dataset.camera_intrinsics
-        images, poses = stage_dataset.device_arrays()
+        streaming = stage_dataset.streaming  # its steps gather pixels and poses on the host
+        images, poses = (None, None) if streaming else stage_dataset.device_arrays()
         batch_iter = stage_dataset.iter_batches(image_batch_cache_size, rng)
         stage_lr = learning_rate * (stagewise_lr_decay_gamma ** (stage - 1))
         schedule = exponential_decay_staircase(stage_lr, lr_decay_steps_per_stage, lr_decay_gamma_per_stage)
         optimizer = make_adam(grid, stage_lr)
         render_config = vol_mod.render_config
-        if use_shear_warp:
+        effective_ray_batch = ray_batch_size
+        if on_cpu and coarse_ray_batch_size is not None:
+            effective_ray_batch = coarse_ray_batch_size
+        stage_ray_batch = min(effective_ray_batch, image_batch_cache_size * intr.height * intr.width)
+        sw_active = use_shear_warp and not streaming
+        if use_shear_warp and streaming:
+            log.warning("shear-warp training needs the base targets on the device; "
+                        "the streaming stage falls back to the exact renderer")
+        if sw_active:
             base_res = shear_warp_base_res or lane_aligned_res(2 * max(intr.height, intr.width))
             base_hw = (base_res, base_res)
             log.info(f"shear-warp path: base lattice {base_hw}")
@@ -366,12 +534,38 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             train_step = make_recon_train_step_shearwarp(
                 render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule=schedule
             )
+
+            def build(k):  # called within this stage only
+                return make_recon_train_multi_step_shearwarp(
+                    render_config, optimizer, base_hw, k, apply_diffuse_render_regularization, lr_schedule=schedule
+                )
+        elif streaming:
+            if steps_per_call > 1:
+                log.warning("streaming dataset: K steps a call need the scene on the device; "
+                            "falling back to steps_per_call=1")
+                steps_per_call = 1
+            train_step = make_recon_train_step_streaming(
+                intr, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule=schedule
+            )
         else:
-            stage_ray_batch = min(ray_batch_size, image_batch_cache_size * intr.height * intr.width)
+            def build(k):  # called within this stage only
+                n = len(stage_dataset)
+                return make_recon_train_multi_step(
+                    intr, render_config, optimizer, stage_ray_batch, n, min(image_batch_cache_size, n), k,
+                    apply_diffuse_render_regularization, lr_schedule=schedule,
+                )
+
             train_step = make_recon_train_step(
                 intr, render_config, optimizer, stage_ray_batch, apply_diffuse_render_regularization,
                 lr_schedule=schedule,
             )
+        multi_steps = {}
+
+        start_iteration = 1
+        if resume_meta is not None and stage == resume_meta["stage"]:
+            load_training_state(resume_from, grid, optimizer, stage_gen)
+            start_iteration = int(resume_meta["stage_iteration"]) + 1
+            resume_meta = None
         log.info(
             f"training stage: {stage}  grid: {grid.grid_dims}  images: [{intr.height} x {intr.width}]  "
             f"lr: {stage_lr:.5f}"
@@ -379,14 +573,32 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         stage_time_start, stage_wall_start = time_training, time.perf_counter()
         feedback_s = test_s = 0.0
         last_time = time.perf_counter()
-        for stage_iteration in range(1, num_iterations_per_stage + 1):
-            if use_shear_warp:
-                idx = int(rng.integers(0, len(stage_dataset)))
-                metrics = train_step(grid, sw_targets, sw_masks, poses, idx)
+        for stage_iteration in range(start_iteration, num_iterations_per_stage + 1, steps_per_call):
+            # the last call of a stage may be partial: exactly num_iterations_per_stage updates
+            chunk = min(steps_per_call, num_iterations_per_stage - stage_iteration + 1)
+            if steps_per_call > 1 and chunk not in multi_steps:
+                multi_steps[chunk] = build(chunk)
+            if sw_active:
+                if steps_per_call > 1:
+                    idxs = rng.integers(0, len(stage_dataset), chunk)
+                    metrics = multi_steps[chunk](grid, sw_targets, sw_masks, poses, idxs, stage_gen)
+                else:
+                    idx = int(rng.integers(0, len(stage_dataset)))
+                    metrics = train_step(grid, sw_targets, sw_masks, poses, idx, stage_gen)
+            elif streaming:
+                # pixels gathered on the host from the memmap; the card sees
+                # the small pose block and the [R, 3] pixel batch
+                batch_indices = np.asarray(next(batch_iter))
+                frame_pixels = intr.height * intr.width
+                flat_idx = rng.integers(0, len(batch_indices) * frame_pixels, stage_ray_batch)
+                pixels = stage_dataset.sample_pixels(flat_idx % frame_pixels, batch_indices[flat_idx // frame_pixels])
+                metrics = train_step(grid, stage_dataset.poses[batch_indices], flat_idx, pixels, stage_gen)
+            elif steps_per_call > 1:
+                metrics = multi_steps[chunk](grid, images, poses, stage_gen)
             else:
-                metrics = train_step(grid, images, poses, next(batch_iter), gen)
-            global_step += 1
-            last_iter = stage_iteration == num_iterations_per_stage
+                metrics = train_step(grid, images, poses, next(batch_iter), stage_gen)
+            global_step += chunk
+            last_iter = stage_iteration + steps_per_call > num_iterations_per_stage
             if global_step % summary_freq == 0 or stage_iteration == 1 or last_iter:
                 metrics_host = {k: float(v) for k, v in metrics.items()}
                 time_training += time.perf_counter() - last_time
@@ -404,7 +616,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 t0 = time.perf_counter()
                 visualize_sh_vox_grid_vol_mod_rendered_feedback(
                     VolumetricModel(grid, render_config), "default", render_feedback_pose, camera_intrinsics,
-                    global_step, render_dir, training_time=time_training, use_shear_warp=use_shear_warp,
+                    global_step, render_dir, training_time=time_training, use_shear_warp=sw_active,
                 )
                 last_time = time.perf_counter()
                 feedback_s += last_time - t0
@@ -413,22 +625,21 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
 
                 t0 = time.perf_counter()
                 test_sh_vox_grid_vol_mod_with_posed_images(
-                    VolumetricModel(grid, render_config), test_dataset, tb_writer, global_step
+                    VolumetricModel(_on(grid, dev), render_config), test_dataset, tb_writer, global_step
                 )
                 last_time = time.perf_counter()
                 test_s += last_time - t0
             if global_step % save_freq == 0 or stage_iteration == 1 or last_iter:
-                frozen = grid.replace(densities=grid.densities.detach(), features=grid.features.detach())
-                VolumetricModel(frozen, render_config).save(
+                VolumetricModel(_on(grid, grid.densities.device), render_config).save(
                     model_dir / f"model_stage_{stage}_iter_{global_step}.pth", extra_info=extra_info
                 )
                 save_training_state(
                     model_dir / "training_state_latest.pth",
-                    adam_state_tensors(grid, optimizer),
+                    training_state_arrays(grid, optimizer, stage_gen, global_step),
                     {"stage": stage, "stage_iteration": stage_iteration, "global_step": global_step},
                 )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if stage_dev.type == "cuda":
+            torch.cuda.synchronize(stage_dev)
         time_training += time.perf_counter() - last_time
         stage_s = time_training - stage_time_start
         log.info(
@@ -436,13 +647,13 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             f"{time.perf_counter() - stage_wall_start:.1f}s incl. feedback {feedback_s:.1f}s, "
             f"test {test_s:.1f}s, logging and checkpoints",
             extra={"stage": stage, "stage_training_s": stage_s, "stage_feedback_s": feedback_s,
-                   "stage_test_s": test_s},
+                   "stage_test_s": test_s, "stage_device": stage_dev.type},
         )
         if stage != num_stages:
             with torch.no_grad():
                 grid = scale_voxel_grid(grid, stagewise_sizes[stage])
 
-    vol_mod.grid = grid.replace(densities=grid.densities.detach(), features=grid.features.detach())
+    vol_mod.grid = _on(grid, dev)
     vol_mod.extra_info.update(extra_info)
     vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
     if tb_writer is not None:

@@ -14,9 +14,13 @@ One iteration on the shear-warp path (`make_refine_iter_shearwarp`):
   (`make_dual_attn_update`), masked L1 against the targets plus TV, and an
   Adam step for each grid on the staircase learning rate.
 `make_attn_train_step` is the same update on the exact renderer, one render
-per grid. `refine_edited_relu_field` is the loop: hemisphere or dataset
-poses one iteration at a time, feedback, `model_{edit,object}_iter_<n>.pth`
-snapshots, then the graph cut, the merge and the final checkpoints.
+per grid. `make_refine_multi_step` runs K shear-warp iterations a call (the
+JAX package's `steps_per_call`): each draws a hemisphere pose, buckets its
+view direction and takes that direction's text and token selection.
+`refine_edited_relu_field` is the loop: hemisphere or dataset poses, one
+iteration or (random poses on the shear-warp path) K a call, feedback,
+`model_{edit,object}_iter_<n>.pth` snapshots, then the graph cut, the merge
+and the final checkpoints.
 
 There is no jit: the JAX package's single-dispatch iteration is a Python
 function here; its `jax.random` draws (t, the VAE's eps, the noise, the
@@ -51,7 +55,7 @@ from voxe_tpu_torch.seg.graphcut import get_edit_region, merge_edit_region
 from voxe_tpu_torch.train.losses import tv_loss_on_grid
 from voxe_tpu_torch.train.recon import apply_lr_schedule, exponential_decay_staircase
 from voxe_tpu_torch.train.sds import HEMISPHERICAL_RADIUS_CONSTANT, _sync, get_dir_batch_from_poses
-from voxe_tpu_torch.utils.camera import CameraPose, get_random_pose
+from voxe_tpu_torch.utils.camera import CameraPose, direction_index, get_random_pose, random_pose
 from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.logging import log
 
@@ -93,18 +97,19 @@ def make_dual_attn_update(
     step each.
 
     signature: update(edit_attn, obj_attn, rotation [3,3], translation [3,1],
-                      edit_map [U,V], obj_map [U,V]) -> metrics
+                      edit_map [U,V], obj_map [U,V], generator=None) -> metrics
     `edit_attn` / `obj_attn` ([X,Y,Z,1], the optimizers' tensors) are
-    updated in place."""
+    updated in place; `generator` draws the density noise when the config
+    asks for it."""
     sw_hw = tuple(sw_hw)
 
-    def update(edit_attn, obj_attn, rotation, translation, edit_map, obj_map):
+    def update(edit_attn, obj_attn, rotation, translation, edit_map, obj_map, generator=None):
         optimizer_edit.zero_grad(set_to_none=True)
         optimizer_object.zero_grad(set_to_none=True)
         attn2 = torch.cat([edit_attn, obj_attn], dim=-1)
         out, _ = render_shear_warp(
             base_grid.replace(attn=attn2), CameraPose(rotation, translation.reshape(3, 1)), render_config,
-            base_hw=sw_hw, attn_mode=True, background_value=0.0,
+            base_hw=sw_hw, attn_mode=True, background_value=0.0, generator=generator,
         )
         rendered = orient_base_image(out.colour.reshape(*sw_hw, 2), rotation)
         attn_l_e = calc_loss_on_attn_grid(rendered[..., 0], edit_map.detach())
@@ -182,11 +187,64 @@ def make_refine_iter_shearwarp(
         edit_map, obj_map = select_targets(
             maps, torch.as_tensor(edit_mask, device=dev), torch.as_tensor(obj_mask, device=dev)
         )
-        metrics = dual_update(edit_attn, obj_attn, rotation, translation, edit_map, obj_map)
+        metrics = dual_update(edit_attn, obj_attn, rotation, translation, edit_map, obj_map, generator)
         metrics["t"] = int(t)
         return metrics
 
     return refine_iter
+
+
+def make_refine_multi_step(
+    sd: StableDiffusion,
+    render_config: SHVoxGridRenderConfig,
+    optimizer_edit: torch.optim.Optimizer,
+    optimizer_object: torch.optim.Optimizer,
+    base_grid: VoxelGrid,
+    sw_hw: tuple,
+    timestamp: int,
+    attn_tv_weight: float,
+    steps_per_call: int,
+    radius: float,
+    lr_schedule=None,
+) -> Callable:
+    """K refinement iterations a call (random-pose mode, shear-warp path):
+    each draws a hemisphere pose, buckets its view direction (side,
+    overhead, back, front = 0..3) and runs `make_refine_iter_shearwarp` with
+    that direction's text embeddings and token selection.
+
+    signature: multi(edit_attn, obj_attn, text_by_dir [4, 2, 77, D],
+                     selection_by_dir (4 of (token_indices, edit_mask,
+                     obj_mask)), generator=None, *, poses=None, t=None,
+                     noise=None, vae_eps=None) -> last iteration's metrics
+    `poses` (rotation [K,3,3], translation [K,3,1], pitch_deg [K], yaw_deg
+    [K]), `t` [K] and `noise` / `vae_eps` [K, 1, h, w, 4] replace the
+    draws."""
+    refine_iter = make_refine_iter_shearwarp(
+        sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp, attn_tv_weight,
+        lr_schedule,
+    )
+
+    def multi(edit_attn, obj_attn, text_by_dir, selection_by_dir, generator=None, *,
+              poses=None, t=None, noise=None, vae_eps=None):
+        dev = edit_attn.device
+        metrics = {}
+        for i in range(steps_per_call):
+            if poses is None:
+                rotation, translation, pitch_deg, yaw_deg = random_pose(generator, radius, device=dev)
+            else:
+                rotation, translation, pitch_deg, yaw_deg = (
+                    torch.as_tensor(x[i], dtype=torch.float32, device=dev) for x in poses)
+            dir_idx = direction_index(float(pitch_deg), float(yaw_deg))
+            idxs, emask, omask = selection_by_dir[dir_idx]
+            metrics = refine_iter(
+                edit_attn, obj_attn, text_by_dir[dir_idx], rotation, translation.reshape(3, 1), idxs, emask, omask,
+                generator=generator, t=None if t is None else int(t[i]),
+                noise=None if noise is None else noise[i], vae_eps=None if vae_eps is None else vae_eps[i],
+            )
+            metrics["dir_idx"] = dir_idx
+        return metrics
+
+    return multi
 
 
 def make_attn_train_step(
@@ -299,11 +357,13 @@ def refine_edited_relu_field(
     `output_dir/saved_models/model_{edit,object}_iter_<n>.pth`, then
     `model_final_attn_edit.pth`, `model_final_attn_object.pth` and
     `model_final_refined.pth`; feedback PNGs go to
-    `output_dir/training_logs/rendered_output`."""
+    `output_dir/training_logs/rendered_output`. With `steps_per_call` K > 1
+    on the shear-warp path in random-pose mode, K iterations run a call
+    (`make_refine_multi_step`) and summary, feedback and snapshots follow
+    the JAX package's K-step cadence: when the step is within K of a multiple
+    of the frequency, on the first call and on the last."""
     if prompt == "none":
         raise ValueError("you have to supply a text prompt")
-    if steps_per_call > 1:
-        raise NotImplementedError("steps_per_call > 1: the fused refinement multi-step is not ported yet")
     if num_devices > 1:
         raise NotImplementedError("num_devices > 1: multi-device refinement is not ported yet")
     del hf_auth_token, ray_batch_size, scale_factor, apply_diffuse_render_regularization, verbose_rendering
@@ -426,12 +486,45 @@ def refine_edited_relu_field(
                 model_dir / f"model_{name}_iter_{global_step}.pth", extra_info=extra_info
             )
 
+    use_fused = use_shear_warp and steps_per_call > 1 and not data_pose_mode
     log.info(
         f"beginning attn-grid refinement: grid {base_grid.grid_dims}, frame [{im_h} x {im_w}], "
-        f"prompt '{prompt}', edit_idx {edit_idx}"
+        f"prompt '{prompt}', edit_idx {edit_idx}" + (f", {steps_per_call} iterations a call" if use_fused else "")
     )
     time_training = 0.0
-    for global_step in range(1, num_iterations + 1):
+    if use_fused:
+        text_by_dir = torch.stack([sd.get_text_embeds(prompt + f", {d} view", "") for d in DIRECTION_PROMPTS])
+        selection_by_dir = [dir_selection[d] for d in DIRECTION_PROMPTS]
+        multi_steps = {}
+        for chunk_start in range(1, num_iterations + 1, steps_per_call):
+            # the last call may be partial: exactly num_iterations updates
+            chunk = min(steps_per_call, num_iterations - chunk_start + 1)
+            if chunk not in multi_steps:
+                multi_steps[chunk] = make_refine_multi_step(
+                    sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp,
+                    attn_tv_weight, chunk, HEMISPHERICAL_RADIUS_CONSTANT, schedule,
+                )
+            last_time = time.perf_counter()
+            metrics = multi_steps[chunk](edit_attn, obj_attn, text_by_dir, selection_by_dir, gen)
+            _sync(dev)
+            time_training += time.perf_counter() - last_time
+            global_step = chunk_start + chunk - 1
+            last_iter = global_step >= num_iterations
+            if global_step % summary_freq < steps_per_call or chunk_start == 1 or last_iter:
+                log.info(
+                    f"Iteration: {global_step} attn_loss: {float(metrics['attn_loss_edit']):.4f} "
+                    f"obj: {float(metrics['attn_loss_object']):.4f}"
+                )
+            if (global_step % feedback_freq < steps_per_call or chunk_start == 1 or last_iter) and not fast_debug_mode:
+                # the chunk's poses were drawn on the device: feedback takes a fresh host pose
+                pose, direction, _, _ = get_random_pose(HEMISPHERICAL_RADIUS_CONSTANT, rng)
+                rot = torch.as_tensor(np.asarray(pose.rotation, np.float32), device=dev)
+                trans = torch.as_tensor(np.asarray(pose.translation, np.float32), device=dev).reshape(3, 1)
+                emit_feedback(global_step, pose, rot, trans, prompt + f", {direction} view")
+            if global_step % save_freq < steps_per_call or last_iter:
+                save_snapshots(global_step)
+
+    for global_step in range(1, num_iterations + 1) if not use_fused else ():
         last_time = time.perf_counter()
         if data_pose_mode:
             pose_arr = train_dataset.poses[next(batch_iter)[0]]

@@ -157,7 +157,8 @@ def sds_edit_loss(
     total = torch.zeros((), device=grid.densities.device)
     if do_sds:
         out, _ = render_shear_warp(
-            grid, CameraPose(rotation, translation.reshape(3, 1)), render_config, base_hw=base_hw
+            grid, CameraPose(rotation, translation.reshape(3, 1)), render_config, base_hw=base_hw,
+            generator=generator,
         )
         # upright frame for SD (rows down camera -up, cols along right)
         imgs = orient_base_image(out.colour.reshape(*base_hw, 3), rotation)[None]
@@ -232,7 +233,8 @@ def make_sds_train_step_shearwarp_data(
         frames, photometric = [], torch.zeros((), device=grid.densities.device)
         for i in range(num_frames):
             out, _ = render_shear_warp(
-                grid, CameraPose(rotations[i], translations[i]), render_config, base_hw=base_hw
+                grid, CameraPose(rotations[i], translations[i]), render_config, base_hw=base_hw,
+                generator=generator,
             )
             img = out.colour.reshape(*base_hw, 3)
             if uncoupled_mode:
