@@ -48,7 +48,16 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      f32, a byte-level BPE vocab) and loaded back through
      `StableDiffusion(weights_dir=)`: CLIP, VAE and UNet outputs bitwise equal
      to the source's, the BPE tokenizer in use;
-  9. edit-cli: the edit CLI module end to end on the recon CLI's
+  8s. sd-sample: the validate-weights CLI module on that snapshot at its
+     defaults (the SDS smoke, then 50 DDIM steps at CFG 7.5 and 512^2, the
+     VAE decode, the PNG): 5 flash launches a CFG UNet pass (255 in all),
+     ms per DDIM step, decode ms, the CLI's seconds, peak memory;
+ 8p. p2p-hook: one SD 2.0 CFG UNet pass at 512^2 plain (flash and SDPA) and
+     with an identity probs-edit hook (every attention on the f32 probs
+     path, no flash launch): outputs within the flash tolerance, one hook
+     call an attention, ms and peak memory of both; then one
+     prompt-to-prompt AttentionRefine pass through the hook on the card;
+ 9. edit-cli: the edit CLI module end to end on the recon CLI's
      model_final.pth (160^3, fused compositing) and the 400^2 scene, with
      the snapshot's weights: 6 SDS steps on the 384^2 base, feedback renders
      and checkpoints; 5 flash launches a step, compositing launches on every
@@ -99,6 +108,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
@@ -108,13 +118,15 @@ from voxe_tpu_torch.cli import render_sh_based_voxel_grid as render_cli
 from voxe_tpu_torch.cli import render_sh_based_voxel_grid_attn as render_attn_cli
 from voxe_tpu_torch.cli import segment_attn_relu_field as segment_cli
 from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
+from voxe_tpu_torch.cli import validate_sd_weights as validate_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
 from voxe_tpu_torch.models.lpips import build_vgg16_features
 from voxe_tpu_torch.models.sd import cross_attn
+from voxe_tpu_torch.models.sd.controllers import AttentionRefine
 from voxe_tpu_torch.models.sd import weights as sd_weights
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
-from voxe_tpu_torch.models.sd.unet import flash_self_attention_enabled
+from voxe_tpu_torch.models.sd.unet import Transformer2D, flash_self_attention_enabled
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
 from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
@@ -1022,11 +1034,30 @@ def write_hf_snapshot(sd: StableDiffusion, root: Path) -> None:
     (root / "tokenizer" / "special_tokens_map.json").write_text(json.dumps({"pad_token": pad}))
 
 
+@torch.no_grad()
+def draw_biases_(sd: StableDiffusion, seed: int) -> None:
+    """Every bias of a randomly initialised SD drawn from 0.1 N(0, 1), as
+    trained weights carry them (the parity tests' parameters draw them so
+    too). With the init's zero biases, the validate CLI's SDS smoke feeds
+    the VAE a gray image that is exactly 0 after 2x - 1, every activation
+    of the encoder is 0, and each GroupNorm's backward scales by
+    1/sqrt(eps) = 1e3: SD's 22 encoder norms overflow f32. The JAX tool
+    does the same on the same weights (both give ~4e26 through the tiny
+    VAE's 10 norms)."""
+    g = torch.Generator(device=sd.device).manual_seed(seed)
+    for module in (sd.clip, sd.vae, sd.unet):
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g, device=sd.device))
+
+
 def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
-    """SD 2.0 (or 1.4) at published widths through the HF snapshot loader;
-    returns the snapshot directory."""
+    """SD 2.0 (or 1.4) at published widths, seeded random weights with
+    drawn biases, through the HF snapshot loader; returns the snapshot
+    directory."""
     phase = "sd-weights" if version == SD_VERSION else "sd14-weights"
     src = StableDiffusion(version, init_mode="random", seed=5, device=dev)
+    draw_biases_(src, seed=7)
     root = workdir / f"sd{version.replace('.', '')}_snapshot"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1306,6 +1337,106 @@ def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) 
     return flash, composite
 
 
+SAMPLE_STEPS = 50  # the validate CLI's default --sanity_steps
+FLASH_PER_UNET_PASS = 5  # SD 2.x at a 64^2 latent: down_0's 2 and up_3's 3 self-attentions pass the gate
+
+
+def phase_sd_sample(dev, workdir: Path, snapshot: Path) -> tuple:
+    """The validate CLI module on the SD 2.0 snapshot at its defaults (the
+    SDS smoke, then text-to-image at 512^2); returns its (flash,
+    compositing) launches."""
+    png = workdir / "sd-sample" / "sanity.png"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of this path's run
+    img, records = logged(validate_cli.main, [
+        "-d", str(snapshot), "--sd_version", SD_VERSION, "--run_smoke", "True", "--sanity_image", str(png),
+        "--device", str(dev),
+    ])
+    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    seconds = time.perf_counter() - t0
+    step_ms = next(r.ddim_step_ms for r in records if hasattr(r, "ddim_step_ms"))
+    decode_ms = next(r.decode_ms for r in records if hasattr(r, "decode_ms"))
+    with Image.open(png) as f:
+        read = np.asarray(f)
+    want = FLASH_PER_UNET_PASS * (SAMPLE_STEPS + 1)  # a CFG pass a DDIM step, one in the SDS smoke
+    log("sd-sample", steps=len(step_ms), ms_per_ddim_step=float(np.median(step_ms[1:])),
+        ddim_step_ms_range=[min(step_ms[1:]), max(step_ms[1:])], first_step_ms=step_ms[0],
+        sampling_ms=sum(step_ms), decode_ms=decode_ms, cli_s=seconds,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=flash, want_flash_launches=want,
+        png=list(read.shape), png_dtype=str(read.dtype), pixel_mean=float(read.mean()))
+    if read.shape != (512, 512, 3) or read.dtype != np.uint8 or not np.array_equal(read, img):
+        raise AssertionError(f"sd-sample: the PNG holds {read.shape} {read.dtype}, not the 512x512x3 uint8 image")
+    if len(step_ms) != SAMPLE_STEPS or flash != want:
+        raise AssertionError(f"sd-sample: {len(step_ms)} DDIM steps, {flash} flash launches (want {want})")
+    return flash, composite
+
+
+def phase_p2p_hook(dev, snapshot: Path) -> tuple:
+    """One SD 2.0 CFG UNet pass at 512^2, plain and with an identity
+    `attn_edit_fn`, then one AttentionRefine pass through the hook; returns
+    the hooked passes' (flash, compositing) launches."""
+    sd = StableDiffusion(SD_VERSION, weights_dir=snapshot, device=dev)
+    text = sd.get_text_embeds("a dog wearing a party hat")
+    g = torch.Generator(device=dev).manual_seed(8)
+    lat = torch.cat([torch.randn(sd.latent_shape(1), generator=g, device=dev)] * 2)
+    transformers = sum(isinstance(m, Transformer2D) for m in sd.unet.modules())
+    calls = []
+
+    def identity(probs, place, is_cross):
+        calls.append((place, is_cross, tuple(probs.shape)))
+        return probs
+
+    def pass_stats(edit):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()  # counts from here to the end of this pass
+        out = sd.unet_noise_pred(lat, 500, text, attn_edit_fn=edit)
+        torch.cuda.synchronize()
+        return out, (fa.LAUNCHES, comp.LAUNCHES), (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    plain, (plain_flash, _), plain_gib = pass_stats(None)
+    hooked, hooked_counts, hooked_gib = pass_stats(identity)
+    hooked_flash = hooked_counts[0]
+    rel = float((hooked - plain).abs().max() / plain.abs().max())
+    n_calls = len(calls)
+    hook_ms = time_ms(lambda: sd.unet_noise_pred(lat, 500, text, attn_edit_fn=lambda p, place, c: p), 5, 1)
+    plain_ms = time_ms(lambda: sd.unet_noise_pred(lat, 500, text), 5, 1)
+
+    prompts = ["a dog wearing a party hat", "a dog wearing a red party hat"]
+    ctrl = AttentionRefine(prompts, sd.tokenizer, SAMPLE_STEPS)
+    pair_text = torch.cat([sd.get_text_embeds(p)[1:] for p in prompts])
+    seen, finite = [], []
+
+    def refine(probs, place, is_cross):
+        out = ctrl(probs, place)
+        if is_cross:
+            seen.append((tuple(probs.shape), tuple(out.shape)))
+        finite.append(torch.isfinite(out).all())
+        return out
+
+    reset_counts()  # counts from here to the end of this pass
+    edited = sd.unet_noise_pred(lat, 500, pair_text, attn_edit_fn=refine)
+    refine_flash, refine_composite = fa.LAUNCHES, comp.LAUNCHES
+    ok_refine = bool(torch.stack(finite).all()) and bool(torch.isfinite(edited).all())
+    log("p2p-hook", unet_pass="SD 2.0, [2, 4, 64, 64], t 500", plain_ms=plain_ms, hooked_ms=hook_ms,
+        plain_transient_gib=plain_gib, hooked_transient_gib=hooked_gib, hooked_max_rel_diff=rel,
+        hook_calls=n_calls, transformers=transformers, plain_flash_launches=plain_flash,
+        hooked_flash_launches=hooked_flash, refine_cross_shapes=sorted({s for s, _ in seen}),
+        refine_flash_launches=refine_flash, refine_finite=ok_refine)
+    if plain_flash != FLASH_PER_UNET_PASS or hooked_flash != 0 or refine_flash != 0:
+        raise AssertionError(f"p2p-hook: flash launches plain {plain_flash}, hooked {hooked_flash}, refine {refine_flash}")
+    if n_calls != 2 * transformers or rel >= FLASH_REL_TOL:
+        raise AssertionError(f"p2p-hook: {n_calls} hook calls for {transformers} transformers; max rel diff {rel}")
+    if not ok_refine or len(seen) != transformers or any(a != b or a[-1] != 77 or a[0] != 2 for a, b in seen):
+        raise AssertionError(f"p2p-hook: AttentionRefine shapes {seen}, finite {ok_refine}")
+    del sd
+    torch.cuda.empty_cache()
+    return hooked_flash + refine_flash, hooked_counts[1] + refine_composite
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     libs = {"flash_attn_fwd": fa.build, "composite_fwd": comp.build}
@@ -1362,6 +1493,10 @@ def main() -> int:
         for name, shear_warp in (("render-cli-exact", False), ("render-cli-shear-warp", True)):
             by_path[name] = {"flash_attn_fwd": 0, "composite_fwd": timed(name, phase_render_cli, work, shear_warp)}
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
+        for name, fn, args in (("sd-sample", phase_sd_sample, (dev, work, snapshot)),
+                               ("p2p-hook", phase_p2p_hook, (dev, snapshot))):
+            flash, composite = timed(name, fn, *args)
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
             flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}

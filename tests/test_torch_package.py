@@ -31,7 +31,8 @@ def test_port_imports_no_jax_or_reference_package():
     mods = _modules()
     assert "voxe_tpu_torch.ops.flash_attention" in mods and len(mods) >= 20
     for name in ("cli.render_sh_based_voxel_grid", "cli.render_sh_based_voxel_grid_attn", "viz.animations",
-                 "viz.video", "models.lpips"):
+                 "viz.video", "models.lpips", "cli.validate_sd_weights", "cli.convert_from_nerf_blender_dataset",
+                 "models.sd.controllers", "models.sd.seq_aligner", "data.blender"):
         assert f"voxe_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

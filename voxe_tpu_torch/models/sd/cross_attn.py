@@ -55,9 +55,14 @@ def aggregate_token_maps(
     token_maps = agg.index_select(-1, idx).permute(2, 0, 1)  # [B, res, res]
     if smooth:
         token_maps = gaussian_smooth_maps(token_maps)
-    return F.interpolate(
-        token_maps[:, None], size=(orig_im_h, orig_im_w), mode="bilinear", align_corners=False
-    )[:, 0]
+    return upsample_maps(token_maps, orig_im_h, orig_im_w)
+
+
+def upsample_maps(maps: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Enlarge [B, h, w] maps to [B, height, width] bilinearly with
+    half-pixel centres and clamped edges: `jax.image.resize(..., "bilinear")`
+    when it enlarges (it antialiases only when it shrinks)."""
+    return F.interpolate(maps[:, None], size=(height, width), mode="bilinear", align_corners=False)[:, 0]
 
 
 def normalize_attn_map(attn_map: torch.Tensor) -> torch.Tensor:

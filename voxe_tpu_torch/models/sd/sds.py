@@ -19,6 +19,11 @@ thre3d_atom/thre3d_reprs/sd.py:20-385).
 * `attention_maps` / `get_attn_map` are the refinement stage's attention
   extraction: one noised CFG UNet pass with capture, then per-token maps at
   the render's size (`cross_attn.aggregate_token_maps`).
+* Text-to-image sampling: `produce_latents` (the DDIM loop on the host over
+  Python-int timesteps, one CFG UNet pass a step), `decode_latents` and
+  `prompt_to_img`.
+* `train_step` / `scoreDistillationLoss.training_step` are the reference's
+  host API over `sds_loss` (schedule update, t draw, the loss).
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
 from voxe_tpu_torch.utils.logging import log
+from voxe_tpu_torch.utils.timing import FrameClock
 
 DIRECTION_PROMPTS = ("side", "overhead", "back", "front")
 
@@ -204,14 +210,26 @@ class StableDiffusion:
         return self.vae.encode(x, eps).float()
 
     @torch.no_grad()
-    def unet_noise_pred(self, latents_in, t, text_embeddings, capture_attn: bool = False):
+    def decode_latents(self, latents):
+        """Scaled latents [B, 4, h, w] -> images [B, 3, H, W] in [0, 1], f32;
+        the VAE runs in its dtype."""
+        x = latents.to(self.vae_dtype)
+        if self.device.type == "cuda":
+            x = x.contiguous(memory_format=torch.channels_last)
+        return torch.clamp(self.vae.decode(x).float() / 2.0 + 0.5, 0.0, 1.0)
+
+    @torch.no_grad()
+    def unet_noise_pred(self, latents_in, t, text_embeddings, capture_attn: bool = False, attn_edit_fn=None):
         """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction;
-        with `capture_attn`, (prediction, captured (tag, [2B, Q, K]) maps)."""
+        with `capture_attn`, (prediction, captured (tag, [2B, Q, K]) maps).
+        `attn_edit_fn` is the UNet's probs-edit hook."""
         x = latents_in.to(self.unet_dtype)
         if self.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
         store = [] if capture_attn else None
-        out = self.unet(x, t, text_embeddings.to(self.unet_dtype), attn_store=store).float()
+        out = self.unet(
+            x, t, text_embeddings.to(self.unet_dtype), attn_store=store, attn_edit_fn=attn_edit_fn
+        ).float()
         return (out, store) if capture_attn else out
 
     def _draws(self, given, batch: int, generator, dev):
@@ -312,6 +330,92 @@ class StableDiffusion:
         grad = torch.nan_to_num(w * (noise_pred - noise))
         return specify_gradient(latents, grad)
 
+    def train_step(
+        self,
+        text_embeddings: torch.Tensor,
+        pred_rgb: torch.Tensor,
+        guidance_scale: float = 100.0,
+        global_step: int = -1,
+        *,
+        generator: Optional[torch.Generator] = None,
+        t: Optional[int] = None,
+        noise: Optional[torch.Tensor] = None,
+        vae_eps: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The reference's host API (sd.py:174-234): update the t schedule,
+        draw t (or take the given one), return the SDS loss."""
+        self.update_t_schedule(global_step)
+        if t is None:
+            t = self.sample_timestep(generator)
+        return self.sds_loss(
+            text_embeddings, pred_rgb, t, guidance_scale, generator=generator, noise=noise, vae_eps=vae_eps
+        )
+
+    # ------------------------------------------------------------------
+    # text-to-image sampling (reference sd.py:236-303)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def produce_latents(
+        self,
+        text_embeddings: torch.Tensor,  # [2B, 77, D] (uncond, cond)
+        generator: Optional[torch.Generator] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        latents: Optional[torch.Tensor] = None,  # [B, h, w, 4] NHWC
+    ) -> torch.Tensor:
+        """DDIM sampling with classifier-free guidance: f32 latents
+        [B, 4, h, w] after `num_inference_steps` CFG UNet passes. The start
+        is `latents` replayed, else a standard normal draw from `generator`.
+        Each step's ms is logged (`ddim_step_ms`, CUDA events on a card)."""
+        height = height or self.config.image_size
+        width = width or self.config.image_size
+        factor = 2 ** (len(self.config.vae.block_out_channels) - 1)
+        dev = text_embeddings.device
+        if latents is not None:
+            latents = latents.to(dev, torch.float32).permute(0, 3, 1, 2)
+        else:
+            shape = (text_embeddings.shape[0] // 2, self.config.unet.in_channels, height // factor, width // factor)
+            latents = torch.randn(shape, generator=generator, device=dev)
+        ts = self.scheduler.timesteps(num_inference_steps).tolist()
+        clock = FrameClock(dev)
+        for i, t in enumerate(ts):
+            t_prev = ts[i + 1] if i + 1 < len(ts) else -1
+            noise_pred = self.unet_noise_pred(torch.cat([latents] * 2, dim=0), t, text_embeddings)
+            uncond, text = noise_pred.chunk(2, dim=0)
+            noise_pred = text + guidance_scale * (text - uncond)
+            latents = self.scheduler.step(noise_pred, t, t_prev, latents)
+            clock.tick()
+        step_ms = clock.ms()
+        log.info(f"DDIM sampling: {len(ts)} steps, median {float(np.median(step_ms)):.2f} ms a step",
+                 extra={"ddim_step_ms": step_ms})
+        return latents
+
+    def prompt_to_img(
+        self,
+        prompts,
+        negative_prompts="",
+        generator: Optional[torch.Generator] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_inference_steps: int = 50,
+        guidance_scale: float = 7.5,
+        latents: Optional[torch.Tensor] = None,  # [B, h, w, 4] NHWC
+    ) -> np.ndarray:
+        """Text to uint8 images [B, H, W, 3]. Without `generator` or `latents`
+        the start is drawn from a generator seeded with 0; the JAX package
+        draws from PRNGKey(0), so the two packages start from different
+        latents unless the caller replays them."""
+        if generator is None and latents is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        text_embeds = self.get_text_embeds(prompts, negative_prompts)
+        latents = self.produce_latents(
+            text_embeds, generator, height, width, num_inference_steps, guidance_scale, latents
+        )
+        imgs = self.decode_latents(latents).permute(0, 2, 3, 1).cpu().numpy()
+        return (imgs * 255).round().astype("uint8")
+
 
 class scoreDistillationLoss:
     """Directional SDS text conditioning (reference sd.py:333-385): the four
@@ -344,6 +448,9 @@ class scoreDistillationLoss:
         else:
             self.text_encoding = self.sd_model.get_text_embeds(prompt, "")
 
+    def get_current_max_step_ratio(self) -> float:
+        return self.sd_model.get_max_step_ratio()
+
     def encoding_for_direction(self, direction: Optional[str]) -> torch.Tensor:
         if self.directional:
             if direction is None:
@@ -354,3 +461,32 @@ class scoreDistillationLoss:
     def stacked_encodings(self) -> torch.Tensor:
         """[4, 2, 77, D] in DIRECTION_PROMPTS order (the multi-step's table)."""
         return torch.stack([self.text_encodings[d] for d in DIRECTION_PROMPTS])
+
+    def training_step(
+        self,
+        output: torch.Tensor,  # [H*W, 3] or [B, H, W, 3] rendered colours
+        image_height: int,
+        image_width: int,
+        directions=None,
+        generator: Optional[torch.Generator] = None,
+        global_step: int = -1,
+        guidance_scale: float = 100.0,
+        *,
+        draws: Optional[Sequence[Mapping]] = None,
+    ) -> torch.Tensor:
+        """The reference's host API (sd.py:365-385): the summed SDS loss over
+        `directions` (one loss when not directional). `draws`, one mapping a
+        loss with any of "t", "noise" and "vae_eps", replays given draws;
+        the rest come from `generator`."""
+        out_imgs = output.reshape(-1, image_height, image_width, 3)
+        if not self.directional:
+            encodings = [self.text_encoding]
+        else:
+            encodings = [self.text_encodings[d] for d in directions]
+        draws = draws if draws is not None else [{}] * len(encodings)
+        loss = torch.zeros((), device=output.device)
+        for text, given in zip(encodings, draws):
+            loss = loss + self.sd_model.train_step(
+                text, out_imgs, guidance_scale, global_step, generator=generator, **given
+            )
+        return loss

@@ -18,8 +18,18 @@ it on the card is later work.
 Attention capture (the JAX package's `sow` into "attn_maps"): given a list
 `attn_store`, each cross-attention of a transformer tagged "down", "mid" or
 "up" takes the probs path and appends (the tag, head-averaged [B, Q, K]
-f32 probabilities) to it, in call order. The probs-edit hook of the
-prompt-to-prompt controllers is not ported yet.
+f32 probabilities) to it, in call order.
+
+Attention editing (prompt-to-prompt reinjection, the JAX package's
+`attn_edit_fn`): given `attn_edit_fn(probs [B, h, Q, K], place, is_cross)
+-> probs`, EVERY attention takes the probs path (neither the flash kernel
+nor SDPA) and the hook rewrites its probabilities before they weight V. A
+transformer's self-attention (attn1) is called with place "self" and
+is_cross False and is never captured; its cross-attention (attn2) with its
+capture tag ("self" when untagged) and is_cross True. The edit runs before
+the capture, so a captured map is the edited one. The probs path computes
+in f32 from q, k and v in the UNet's dtype; the JAX package's computes in
+the UNet's dtype, so in bf16 the two round differently (in f32 they agree).
 """
 from __future__ import annotations
 
@@ -83,10 +93,11 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, query_dim, bias=False)
         self.to_out_0 = nn.Linear(query_dim, query_dim)
 
-    def forward(self, hidden, context=None, attn_store=None):
+    def forward(self, hidden, context=None, attn_store=None, attn_edit_fn=None):
         """hidden [B, Q, C]; context [B, K, Dc] (None -> self-attention).
         With `attn_store` (a list) and a capture tag, the head-averaged f32
-        probabilities are appended to it."""
+        probabilities are appended to it; `attn_edit_fn` rewrites the
+        [B, h, Q, K] probabilities first."""
         B, Q, C = hidden.shape
         head_dim = C // self.num_heads
         is_cross = context is not None
@@ -97,9 +108,13 @@ class CrossAttention(nn.Module):
         k = self.to_k(context).reshape(B, K, self.num_heads, head_dim)
         v = self.to_v(context).reshape(B, K, self.num_heads, head_dim)
         scale = 1.0 / math.sqrt(head_dim)
-        if attn_store is not None and self.capture:
+        capture = attn_store is not None and self.capture
+        if attn_edit_fn is not None or capture:
             probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, dim=-1)
-            attn_store.append((self.capture, probs.mean(dim=1)))
+            if attn_edit_fn is not None:
+                probs = attn_edit_fn(probs, self.capture or "self", is_cross)
+            if capture:
+                attn_store.append((self.capture, probs.mean(dim=1)))
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
         elif not is_cross and flash_self_attention_enabled(Q, head_dim):
             out = flash_attention(q, k, v, scale)
@@ -132,9 +147,9 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, hidden, context, attn_store=None):
-        hidden = hidden + self.attn1(self.norm1(hidden))
-        hidden = hidden + self.attn2(self.norm2(hidden), context, attn_store)
+    def forward(self, hidden, context, attn_store=None, attn_edit_fn=None):
+        hidden = hidden + self.attn1(self.norm1(hidden), attn_edit_fn=attn_edit_fn)
+        hidden = hidden + self.attn2(self.norm2(hidden), context, attn_store, attn_edit_fn)
         return hidden + self.ff(self.norm3(hidden))
 
 
@@ -146,11 +161,11 @@ class Transformer2D(nn.Module):
         self.transformer_blocks_0 = BasicTransformerBlock(channels, context_dim, num_heads, capture)
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
-    def forward(self, x, context, attn_store=None):
+    def forward(self, x, context, attn_store=None, attn_edit_fn=None):
         B, C, H, W = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks_0(h, context, attn_store)
+        h = self.transformer_blocks_0(h, context, attn_store, attn_edit_fn)
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
 
@@ -213,9 +228,10 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(g, cin, eps=1e-5)
         self.conv_out = nn.Conv2d(cin, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, attn_store=None):
+    def forward(self, sample, timesteps, encoder_hidden_states, attn_store=None, attn_edit_fn=None):
         """sample [B, in_ch, H, W]; timesteps scalar or [B]; context [B, T, Dc].
-        `attn_store`: a list that receives the captured cross-attention maps."""
+        `attn_store`: a list that receives the captured cross-attention maps;
+        `attn_edit_fn`: the probs-edit hook of every attention."""
         cfg = self.config
         n_levels = len(cfg.block_out_channels)
         ctx = encoder_hidden_states
@@ -235,14 +251,14 @@ class UNet2DConditionModel(nn.Module):
             for block in range(cfg.layers_per_block):
                 h = getattr(self, f"down_{level}_resnet_{block}")(h, temb)
                 if is_cross:
-                    h = getattr(self, f"down_{level}_attn_{block}")(h, ctx, attn_store)
+                    h = getattr(self, f"down_{level}_attn_{block}")(h, ctx, attn_store, attn_edit_fn)
                 skips.append(h)
             if level != n_levels - 1:
                 h = getattr(self, f"down_{level}_downsample")(h)
                 skips.append(h)
 
         h = self.mid_resnet_0(h, temb)
-        h = self.mid_attn(h, ctx, attn_store)
+        h = self.mid_attn(h, ctx, attn_store, attn_edit_fn)
         h = self.mid_resnet_1(h, temb)
 
         for up_idx in range(n_levels):
@@ -251,7 +267,7 @@ class UNet2DConditionModel(nn.Module):
                 h = torch.cat([h, skips.pop()], dim=1)
                 h = getattr(self, f"up_{up_idx}_resnet_{block}")(h, temb)
                 if is_cross:
-                    h = getattr(self, f"up_{up_idx}_attn_{block}")(h, ctx, attn_store)
+                    h = getattr(self, f"up_{up_idx}_attn_{block}")(h, ctx, attn_store, attn_edit_fn)
             if up_idx != n_levels - 1:
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
                 h = getattr(self, f"up_{up_idx}_upsample")(h)
