@@ -9,6 +9,9 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
   3. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes plus ragged and hard shapes; kernel, plain and library
      (timed only, never used by the port) times against the kernel's bound;
+     the flash backward (flash-bwd-kernel) at the forward's check shapes and
+     the timed shapes, against the plain f32 backward, the forward with and
+     without its LSE output, SDPA's backward as the library time;
   4. small-input checks: the tiny edit step's and a 16^3 shear-warp recon
      step's grid gradients on the card against the same step on the CPU;
   5. the edit main path at full width: the SDS edit step (SD 2.0 at its
@@ -43,6 +46,10 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      frame's device profile;
   7b. render-cli-shear-warp: the same through the shear-warp screen render
      (1600^2 base, 1 launch a frame), 36 frames;
+  7f. feature-grid: the feature-voxel model (160^3 x 12 features, the
+     64 x 4 rgbnet) on the 400^2 scene: ms per image at 512 samples in
+     32,768-ray chunks, ms per training step at the recon CLI's ray batch
+     (L1, Adam on the grid and the heads), peak memory;
   8. sd-weights: SD 2.0 at its published widths with seeded random weights,
      written as an HF snapshot (safetensors: UNet and VAE in bf16, CLIP in
      f32, a byte-level BPE vocab) and loaded back through
@@ -57,6 +64,10 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      path, no flash launch): outputs within the flash tolerance, one hook
      call an attention, ms and peak memory of both; then one
      prompt-to-prompt AttentionRefine pass through the hook on the card;
+ 8g. unet-grad: the SD 2.0 UNet's gradient (latents and one 64^2 to_q
+     weight) through the flash kernels, 5 forward and 5 backward launches,
+     against the same pass with SDPA in the flash kernel's place; ms and
+     peak memory;
  9. edit-cli: the edit CLI module end to end on the recon CLI's
      model_final.pth (160^3, fused compositing) and the 400^2 scene, with
      the snapshot's weights: 6 SDS steps on the 384^2 base, feedback renders
@@ -83,13 +94,17 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      attention grid at 800^2: the blend on the shear-warp route (2 launches
      a frame) and the exact route (20: the attention render takes the plain
      compositor), then --use_sd on the SD 1.4 snapshot, 2 frames;
+ 14g. grid-refine: the legacy grid_refine loop on the CLI phases' 160^3
+     grids with SD 1.4 (4 iterations with the attention re-learn, graph cuts
+     at 1 and 4): ms per iteration, graph-cut seconds, launches, files;
  15. shape-sweep: the compositing kernel against its plain version at every
      [N, S] it launched in this run that phase 3 did not check;
  16. the `kernels` JSON line, the card line, and the final JSON line.
-Every phase's seconds are printed ([phase-seconds]), and every phase but the
-flash kernel's check fails if the plain attention
-(`flash_attention_reference`) ran on the card in it. Imports nothing from
-JAX or the JAX package.
+Every phase's seconds are printed ([phase-seconds]); every phase but the
+flash kernels' checks fails if the plain attention ran on the card in it,
+and every phase but the backward's check and unet-grad fails if the flash
+backward launched in it (no other path differentiates through the UNet).
+Imports nothing from JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -110,6 +125,7 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from voxe_tpu_torch.grid import feature_voxels as fvg
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
 from voxe_tpu_torch.cli import edit_pretrained_relu_field as edit_cli
@@ -126,16 +142,19 @@ from voxe_tpu_torch.models.sd import cross_attn
 from voxe_tpu_torch.models.sd.controllers import AttentionRefine
 from voxe_tpu_torch.models.sd import weights as sd_weights
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
+from voxe_tpu_torch.models.sd import unet as sd_unet
 from voxe_tpu_torch.models.sd.unet import Transformer2D, flash_self_attention_enabled
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
 from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
 from voxe_tpu_torch.render.accumulate import _pad_samples
-from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
+from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_feature_voxel_grid
+from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.render.shearwarp import lane_aligned_res, orient_base_image, render_shear_warp
 from voxe_tpu_torch.train import recon as train_recon
 from voxe_tpu_torch.train import refine as train_refine
+from voxe_tpu_torch.train import grid_refine
 from voxe_tpu_torch.train import sds as train_sds
 from voxe_tpu_torch.train.checkpointing import read_training_state
 from voxe_tpu_torch.train.losses import density_correlation_loss
@@ -252,6 +271,85 @@ def phase_flash_kernel(dev) -> dict:
         name="flash_attn_fwd", route="cuda", source="voxe_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="voxe_tpu/models/sd/unet.py:163", launches=0, max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+    )
+
+
+# The backward is held at max|d - d_ref| / max|d_ref| < FLASH_BWD_REL_TOL for
+# each of dq, dk and dv, against the plain f32 backward (its own f32 forward
+# output and LSE) from the same bf16 inputs. The kernels round P and dS to
+# bf16 as tensor-core operands (8 significant bits) and write bf16; the sums
+# over L keys or queries average those roundings out; a wrong term (a
+# missing scale, Di or transpose) is O(1) relative. The kernel's LSE is held
+# at FLASH_LSE_TOL absolute (natural-log units; f32 sums in another order and
+# ex2.approx: ~1e-6).
+FLASH_BWD_REL_TOL = 2e-2
+FLASH_LSE_TOL = 1e-3
+BWD_CHECKS = CHECKS + ((LEVEL32_SHAPE, None, 1.0),)
+
+
+def flash_bwd_bound_ms(shape, lk=None) -> tuple:
+    """(bound ms, what bounds it): five products of 2*B*h*Lq*Lk*d flops (S,
+    dP, dV, dK, dQ) at the bf16 peak against q, k, v, o, dO read and dq, dk,
+    dv written once (bf16) plus lse and Di (f32) at the memory rate."""
+    B, L, Hh, D = shape
+    lk = L if lk is None else lk
+    t_ops = 5 * 2.0 * B * Hh * L * lk * D / H100_BF16_FLOPS * 1e3
+    t_bytes = (2 * (5 * B * L * Hh * D + 3 * B * lk * Hh * D) + 2 * 4 * B * Hh * L) / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_flash_bwd_kernel(dev) -> dict:
+    """The backward kernels against the plain backward at the forward's
+    check shapes and the timed shapes; the forward with and without its LSE
+    output; kernel, plain and SDPA-backward times against the bound."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    errs = []
+    for shape, lk, q_scale in BWD_CHECKS:
+        kv_shape = shape if lk is None else (shape[0], lk, *shape[2:])
+        q = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) * q_scale
+        k, v = (torch.randn(kv_shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+        do = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        same_out = bool(torch.equal(out, fa.flash_attention(q, k, v)))
+        grads = fa.flash_attention_backward(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        qf, kf, vf = q.float(), k.float(), v.float()
+        lse_ref = fa.flash_attention_lse_reference(qf, kf)
+        refs = fa.flash_attention_backward_reference(qf, kf, vf, fa.flash_attention_reference(qf, kf, vf), lse_ref, do)
+        lse_err = float((lse - lse_ref).abs().max())
+        rel = {n: float((a.float() - r).abs().max() / r.abs().max()) for n, a, r in zip(("dq", "dk", "dv"), grads, refs)}
+        log("kernel-check", kernel="flash_attn_bwd", shape=list(shape), lk=kv_shape[1], q_scale=q_scale,
+            rel_err=rel, max_abs_err=max(float((a.float() - r).abs().max()) for a, r in zip(grads, refs)),
+            rel_tol=FLASH_BWD_REL_TOL, lse_max_abs_err=lse_err, lse_tol=FLASH_LSE_TOL, fwd_same_with_lse=same_out)
+        if not (max(rel.values()) < FLASH_BWD_REL_TOL and lse_err < FLASH_LSE_TOL and same_out):
+            raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {rel}, lse {lse_err}, {same_out}")
+        errs.append(max(float((a.float() - r).abs().max()) for a, r in zip(grads, refs)))
+        del refs, grads, lse_ref
+    times = {}
+    for shape in (MAIN_SHAPE, LEVEL32_SHAPE, D128_SHAPE):
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, do))
+        plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, do), iters=5, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2).contiguous()
+        library_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v))
+        fwd_lse_ms = time_ms(lambda: fa.flash_attention_with_lse(q, k, v))
+        bound, bound_by = flash_bwd_bound_ms(shape)
+        B, L, Hh, D = shape
+        times[shape] = (ms, plain_ms, library_ms, bound, bound_by)
+        log("kernel-time", kernel="flash_attn_bwd", shape=list(shape), ms=ms, ms_note="the wrapper: Di + both kernels",
+            plain_ms=plain_ms, sdpa_bwd_ms=library_ms, bound_ms=bound, share_of_bound=bound / ms,
+            tflops_of_bound_work=5 * 2.0 * B * Hh * L * L * D / ms / 1e9, fwd_ms=fwd_ms, fwd_with_lse_ms=fwd_lse_ms)
+        del sdpa_out, qt, kt, vt
+    ms, plain_ms, library_ms, bound, bound_by = times[MAIN_SHAPE]
+    return dict(
+        name="flash_attn_bwd", route="cuda", source="voxe_tpu_torch/csrc/flash_attn_bwd.cu",
+        replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:254 (via voxe_tpu/models/sd/unet.py:163)",
+        launches=0, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+        library_ms=library_ms,
     )
 
 
@@ -437,7 +535,12 @@ def phase_main(dev) -> tuple:
     return launches, composite_launches
 
 
+BWD_IN_PHASE = 0  # backward launches in the running phase, across its count resets
+
+
 def reset_counts() -> None:
+    global BWD_IN_PHASE
+    BWD_IN_PHASE += fa.LAUNCHES_BWD
     fa.reset_launches()
     comp.reset_launches()
 
@@ -701,15 +804,15 @@ class LogRecords(logging.Handler):
         self.records.append(record)
 
 
-def logged(fn, *args):
-    """Run fn(*args) keeping the port's log records; returns (its result,
-    the records)."""
+def logged(fn, *args, **kwargs):
+    """Run fn(*args, **kwargs) keeping the port's log records; returns (its
+    result, the records)."""
     records = LogRecords()
     port_log = logging.getLogger("voxe_tpu_torch")
     port_log.setLevel(logging.INFO)
     port_log.addHandler(records)
     try:
-        out = fn(*args)
+        out = fn(*args, **kwargs)
         torch.cuda.synchronize()
     finally:
         port_log.removeHandler(records)
@@ -1437,9 +1540,250 @@ def phase_p2p_hook(dev, snapshot: Path) -> tuple:
     return hooked_flash + refine_flash, hooked_counts[1] + refine_composite
 
 
+UNET_GRAD_TOL = 5e-2  # see phase_unet_grad
+
+
+def phase_unet_grad(dev, snapshot: Path) -> int:
+    """The SD 2.0 UNet's own gradient at its published widths (random
+    weights, drawn biases, bf16): latents [2, 4, 64, 64] (a 512^2 image, CFG
+    batch 2), text context [2, 77, 1024], t 500, a fixed random cotangent.
+    The latents and one 64^2 self-attention's to_q.weight take gradients, so
+    each of the 5 flash attentions runs its backward kernels once. Held
+    against the same pass with the UNet module's `flash_attention` name
+    swapped for the library SDPA (forward and backward; restored in a
+    finally) at UNET_GRAD_TOL of max|ref|: both sides are bf16, and their
+    attention roundings differ at 5 layers forward and backward and carry
+    through the rest of the UNet's backward (the forward alone reads 1.4e-2
+    bf16 flash against f32 probs, PERF.md, PR 8). Returns the backward
+    launches of one pass."""
+    sd = StableDiffusion(SD_VERSION, weights_dir=snapshot, device=dev)
+    text = sd.get_text_embeds("a dog wearing a party hat").to(sd.unet_dtype)
+    g = torch.Generator(device=dev).manual_seed(9)
+    lat = torch.randn((2, 4, 64, 64), generator=g, device=dev).to(sd.unet_dtype)
+    lat = lat.contiguous(memory_format=torch.channels_last)
+    cot = torch.randn((2, 4, 64, 64), generator=g, device=dev)
+    to_q = sd.unet.down_0_attn_0.transformer_blocks_0.attn1.to_q
+    to_q.weight.requires_grad_(True)
+
+    def grads():
+        to_q.weight.grad = None
+        x = lat.detach().clone().requires_grad_(True)
+        (sd.unet(x, 500, text).float() * cot).sum().backward()
+        return x.grad.float(), to_q.weight.grad.float()
+
+    try:
+        grads()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()  # counts from here to the end of this pass
+        flash_grads = grads()
+        torch.cuda.synchronize()
+        flash, bwd, plain = fa.LAUNCHES, fa.LAUNCHES_BWD, fa.REFERENCE_ON_CUDA
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        peak_total = torch.cuda.max_memory_allocated() / 2**30
+        pass_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            grads()
+            torch.cuda.synchronize()
+            pass_ms.append((time.perf_counter() - t0) * 1e3)
+        swapped = sd_unet.flash_attention
+
+        def sdpa(q, k, v, scale):
+            return F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in (q, k, v)), scale=scale).transpose(1, 2)
+
+        sd_unet.flash_attention = sdpa
+        try:
+            sdpa_grads = grads()
+            torch.cuda.synchronize()
+            sdpa_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                grads()
+                torch.cuda.synchronize()
+                sdpa_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            sd_unet.flash_attention = swapped
+    finally:
+        to_q.weight.requires_grad_(False)
+        to_q.weight.grad = None
+    rel = {n: float((a - b).abs().max() / b.abs().max()) for n, a, b in zip(("latents", "to_q_weight"), flash_grads,
+                                                                             sdpa_grads)}
+    finite = all(bool(torch.isfinite(x).all()) for x in flash_grads)
+    log("unet-grad", unet="SD 2.0, [2, 4, 64, 64], context [2, 77, 1024], t 500, bf16",
+        fwd_bwd_ms=float(np.median(pass_ms)), fwd_bwd_ms_range=[min(pass_ms), max(pass_ms)],
+        sdpa_route_fwd_bwd_ms=float(np.median(sdpa_ms)), transient_gib=peak, peak_mem_gib=peak_total,
+        flash_launches=flash, flash_bwd_launches=bwd, plain_attention_calls=plain, rel_err_vs_sdpa=rel,
+        rel_tol=UNET_GRAD_TOL, finite=finite, grad_max=[float(x.abs().max()) for x in flash_grads])
+    if flash != FLASH_PER_UNET_PASS or bwd != FLASH_PER_UNET_PASS or plain != 0:
+        raise AssertionError(f"unet-grad: {flash} forward and {bwd} backward flash launches, {plain} plain calls")
+    if not finite or not max(rel.values()) < UNET_GRAD_TOL:
+        raise AssertionError(f"unet-grad: flash-route gradients against SDPA's {rel}, finite {finite}")
+    del sd
+    torch.cuda.empty_cache()
+    return bwd
+
+
+FEATURES = 12  # DVGO's rgbnet_dim: the feature channels the grid stores
+FEATURE_LR_GRID, FEATURE_LR_HEADS = 0.03, 1e-3  # the recon CLI's grid lr; DVGO's rgbnet lr
+FEATURE_STEPS = 8
+
+
+def phase_feature_grid(dev, workdir: Path) -> int:
+    """The feature-voxel model at the recon path's size: a 160^3 grid of 12
+    features with the reference's 64-wide, 4-deep rgbnet (about 0.2 GB of
+    grid). A 400^2 image of the synthetic scene at 512 samples in the exact
+    renderer's 32,768-ray chunks; then training steps at the recon CLI's ray
+    batch (32,768 rays x 256 samples, jittered): L1 against the scene's
+    pixels, Adam on the grid and the heads. Returns its compositing
+    launches (0: the feature render composites in plain PyTorch, as in JAX)."""
+    scene = workdir / "scene"
+    train = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True, device=dev)
+    images, poses = train.device_arrays()
+    rg = make_recon_grid(GRID_RES, dev)
+    cfg = fvg.FeatureVoxelGridConfig(
+        voxel_size=rg.config.voxel_size, density_preactivation="identity", density_postactivation="softplus",
+        expected_density_scale=rg.config.expected_density_scale,
+    )
+    g = torch.Generator(device=dev).manual_seed(12)
+    grid = fvg.create_feature_voxel_grid(g, (GRID_RES,) * 3, FEATURES, cfg)
+    grid = grid.replace(densities=grid.densities * 2 - 1)  # the recon grid's uniform(-1, 1) raw density
+    grid_gb = (grid.densities.numel() + grid.features.numel()) * 4 / 1e9
+    intr = train.camera_intrinsics
+    rcfg = SHVoxGridRenderConfig(num_samples_per_ray=512, camera_bounds=train.camera_bounds, white_bkgd=True)
+    pose = poses[0]
+    rays = flatten_rays(cast_rays(intr, pose[:, :3], pose[:, 3:]))
+    chunk = rcfg.parallel_rays_chunk_size
+
+    @torch.no_grad()
+    def image():
+        parts = [render_feature_voxel_grid(grid, Rays(rays.origins[i:i + chunk], rays.directions[i:i + chunk]),
+                                           rcfg).colour for i in range(0, rays.origins.shape[0], chunk)]
+        return torch.cat(parts).reshape(intr.height, intr.width, 3)
+
+    reset_counts()  # counts from here to the end of this path's run
+    image()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    render_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = image()
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+    render_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    params = grid.parameters()
+    for t in params:
+        t.requires_grad_(True)
+    opt = torch.optim.Adam([{"params": params[:2], "lr": FEATURE_LR_GRID},
+                            {"params": params[2:], "lr": FEATURE_LR_HEADS}], betas=(0.9, 0.999), eps=1e-8)
+    tcfg = rcfg.replace(num_samples_per_ray=256)
+    n_pix = intr.height * intr.width
+    head0 = grid.rgbnet[0][0].detach().clone()
+
+    def step():
+        flat = torch.randint(0, images.shape[0] * n_pix, (32768,), generator=g, device=dev)
+        target = images.reshape(-1, images.shape[-1])[flat][..., :3]
+        out = render_feature_voxel_grid(grid, train_recon.cast_rays_at_indices(intr, poses, flat), tcfg, generator=g)
+        loss = (out.colour - target).abs().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(step())]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for _ in range(FEATURE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    composite = comp.LAUNCHES
+    moved = float((grid.rgbnet[0][0].detach() - head0).abs().max())
+    log("feature-grid", grid=GRID_RES, features=FEATURES, rgbnet=f"{cfg.rgbnet_width}x{cfg.rgbnet_depth}",
+        grid_gb=grid_gb, image=f"{intr.height}x{intr.width}", samples=512, chunk=chunk,
+        ms_per_image=float(np.median(render_ms)), ms_per_image_range=[min(render_ms), max(render_ms)],
+        render_peak_mem_gib=render_peak, rays_per_step=32768, train_samples=256,
+        ms_per_step=float(np.median(step_ms)), ms_per_step_range=[min(step_ms), max(step_ms)],
+        train_peak_mem_gib=train_peak, losses=losses, rgbnet_moved=moved, composite_launches=composite,
+        image_mean=float(img.mean()))
+    if not (torch.isfinite(img).all() and all(np.isfinite(losses)) and moved > 0.0):
+        raise AssertionError(f"feature-grid: image finite {bool(torch.isfinite(img).all())}, losses {losses}")
+    del grid, opt
+    torch.cuda.empty_cache()
+    return composite
+
+
+GRID_REFINE_ITERS = 4
+
+
+def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> int:
+    """The legacy grid_refine loop on the 160^3 grids the CLI phases wrote
+    (the recon CLI's model_final.pth as the reference, the edit CLI's as the
+    SDS model, the refine CLI's attention grids), 384^2 base, SD 1.4 from
+    the snapshot: 4 iterations with the attention re-learn, a graph cut and
+    merge at iterations 1 and 4, feedback renders. Returns its compositing
+    launches."""
+    saved = workdir / "refine-cli" / "saved_models"
+    models = {role: load_volumetric_model(path, device=dev)[0] for role, path in (
+        ("sds", workdir / "edit-cli" / "saved_models" / "model_final.pth"),
+        ("edit", saved / "model_final_attn_edit.pth"), ("object", saved / "model_final_attn_object.pth"),
+        ("ref", workdir / "cli_out" / "saved_models" / "model_final.pth"))}
+    train = PosedImagesDataset(workdir / "scene" / "train", workdir / "scene" / "train_camera_params.json",
+                               rgba_white_bkgd=True, device=dev)
+    sd = StableDiffusion("1.4", weights_dir=snapshot14, device=dev)
+    out = workdir / "grid-refine"
+    attn_before = models["edit"].grid.attn.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()  # counts from here to the end of this path's run
+    _, records = logged(
+        grid_refine.refine_model, models["sds"], models["edit"], models["object"], models["ref"], train, out,
+        "a dog wearing a party hat", 4, 5, 0,
+        num_iterations_per_stage=GRID_REFINE_ITERS, refine_freq=GRID_REFINE_ITERS, relearn_attn_grids=True,
+        sd_model=sd, shear_warp_base_res=BASE, device=dev,
+    )
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    composite, flash = comp.LAUNCHES, fa.LAUNCHES
+    done = next(r for r in records if hasattr(r, "num_cuts"))
+    files = sorted(p.name for p in (out / "saved_models").iterdir())
+    pngs = sorted(p.name for p in (out / "training_logs" / "rendered_output").glob("*.png"))
+    final, _ = load_volumetric_model(out / "saved_models" / "model_final_sds.pth", device=dev)
+    keep = torch.unique(final.grid.attn).tolist()
+    moved = float((models["edit"].grid.attn - attn_before).abs().max())
+    feedback = 2  # iteration 1 and the last
+    # 2 a re-learn iteration (RGB frame, two-channel attention render); 1 a
+    # cut's feedback render; 2 an attention feedback point (colour, attention)
+    want = 2 * GRID_REFINE_ITERS + done.num_cuts + 2 * feedback
+    log("grid-refine", iterations=GRID_REFINE_ITERS, base=BASE,
+        ms_per_iteration=done.relearn_s / GRID_REFINE_ITERS * 1e3,
+        ms_per_iteration_note="the re-learn steps (RGB frame, SD 1.4 capture, dual update), first included",
+        time_training_s=done.time_training, graph_cut_s=done.graph_cut_s, num_cuts=done.num_cuts, phase_s=seconds,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, composite_launches=composite,
+        want_composite_launches=want, flash_launches=flash, files=files, pngs=pngs, keep_values=keep,
+        edit_attn_moved=moved)
+    names = {f"model_{n}_stage_1_iter_{i}.pth" for n in ("edit", "pbject") for i in (1, GRID_REFINE_ITERS)}
+    names |= {f"model_final_{n}.pth" for n in ("edit", "object", "sds")}
+    if done.num_cuts != 2 or composite != want or flash != 0 or set(files) != names:
+        raise AssertionError(f"grid-refine: {done.num_cuts} cuts, launches {composite} (want {want}), "
+                             f"flash {flash}, files {files}")
+    if final.grid.grid_dims != (GRID_RES,) * 3 or not set(keep) <= {-10.0, -5.0, 0.0} or not moved > 0.0:
+        raise AssertionError(f"grid-refine: final SDS grid {final.grid.grid_dims}, keep {keep}, moved {moved}")
+    del sd, models
+    torch.cuda.empty_cache()
+    return composite
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
-    libs = {"flash_attn_fwd": fa.build, "composite_fwd": comp.build}
+    libs = {"flash_attn_fwd": fa.build, "flash_attn_bwd": fa.build_bwd, "composite_fwd": comp.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn, verbose=True) for name, fn in libs.items()}
@@ -1448,16 +1792,26 @@ def build_all() -> None:
     log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
 
 
+BWD_PHASES = ("flash-bwd-kernel", "unet-grad")  # the only phases that run the flash backward
+
+
 def timed(name: str, fn, *args):
-    """Run one phase; print its seconds. Every phase but the flash kernel's
-    check (which holds the kernel against it) must leave the plain attention
-    uncalled on the card."""
-    fa.REFERENCE_ON_CUDA = 0
+    """Run one phase; print its seconds. Every phase but the flash kernels'
+    checks (which hold the kernels against it) must leave the plain attention
+    uncalled on the card, and every phase but the backward's check and
+    unet-grad must launch no flash backward (no other path differentiates
+    through the UNet)."""
+    global BWD_IN_PHASE
+    fa.REFERENCE_ON_CUDA = fa.LAUNCHES_BWD = BWD_IN_PHASE = 0
     t0 = time.perf_counter()
     out = fn(*args)
-    log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=fa.REFERENCE_ON_CUDA)
-    if name != "flash-kernel" and fa.REFERENCE_ON_CUDA != 0:
+    bwd = BWD_IN_PHASE + fa.LAUNCHES_BWD
+    log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=fa.REFERENCE_ON_CUDA,
+        flash_bwd_launches=bwd)
+    if name not in ("flash-kernel", "flash-bwd-kernel") and fa.REFERENCE_ON_CUDA != 0:
         raise AssertionError(f"{name}: the plain attention ran {fa.REFERENCE_ON_CUDA} times on the card")
+    if name not in BWD_PHASES and bwd != 0:
+        raise AssertionError(f"{name}: the flash backward launched {bwd} times")
     return out
 
 
@@ -1472,6 +1826,7 @@ def main() -> int:
         card=card_line().replace(" ", "_"), count=torch.cuda.device_count())
     timed("build", build_all)  # prints ptxas' registers / shared memory / spills when it builds
     flash_row = timed("flash-kernel", phase_flash_kernel, dev)
+    bwd_row = timed("flash-bwd-kernel", phase_flash_bwd_kernel, dev)
     comp_row = timed("composite-kernel", phase_composite_kernel, dev)
     timed("small-check", phase_small_check, dev)
     timed("small-check-recon", phase_small_check_recon, dev)
@@ -1492,11 +1847,16 @@ def main() -> int:
             "recon-streaming", phase_recon_streaming, dev, work)}
         for name, shear_warp in (("render-cli-exact", False), ("render-cli-shear-warp", True)):
             by_path[name] = {"flash_attn_fwd": 0, "composite_fwd": timed(name, phase_render_cli, work, shear_warp)}
+        by_path["feature-grid"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
+            "feature-grid", phase_feature_grid, dev, work)}
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
         for name, fn, args in (("sd-sample", phase_sd_sample, (dev, work, snapshot)),
                                ("p2p-hook", phase_p2p_hook, (dev, snapshot))):
             flash, composite = timed(name, fn, *args)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        bwd_row["launches"] = timed("unet-grad", phase_unet_grad, dev, snapshot)
+        by_path["unet-grad"] = {"flash_attn_fwd": FLASH_PER_UNET_PASS, "flash_attn_bwd": bwd_row["launches"],
+                                "composite_fwd": 0}
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
             flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
@@ -1509,10 +1869,12 @@ def main() -> int:
         by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         for name, (flash, composite) in timed("render-attn-cli", phase_render_attn_cli, work, snapshot14).items():
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        by_path["grid-refine"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
+            "grid-refine", phase_grid_refine, dev, work, snapshot14)}
     comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
-    for row in (flash_row, comp_row):
-        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
-    print(json.dumps({"kernels": [flash_row, comp_row]}), flush=True)
+    for row in (flash_row, bwd_row, comp_row):  # timed() held flash_attn_bwd at 0 on every other path
+        row["launches_by_path"] = {path: counts.get(row["name"], 0) for path, counts in by_path.items()}
+    print(json.dumps({"kernels": [flash_row, bwd_row, comp_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

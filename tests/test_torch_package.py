@@ -5,7 +5,8 @@ itself and writes images and videos with Pillow), and its
 native segmentation backend is built from the port's own C++ sources into
 its own build directory. Plus the
 flash kernel's wrapper contract, and the kernel held against its plain
-version on the card (marked `cuda`: skipped without one)."""
+version on the card (marked `cuda`: skipped without one). The backward
+kernels' card tests are in test_torch_flash_bwd.py."""
 import os
 import pkgutil
 import subprocess
@@ -32,7 +33,8 @@ def test_port_imports_no_jax_or_reference_package():
     assert "voxe_tpu_torch.ops.flash_attention" in mods and len(mods) >= 20
     for name in ("cli.render_sh_based_voxel_grid", "cli.render_sh_based_voxel_grid_attn", "viz.animations",
                  "viz.video", "models.lpips", "cli.validate_sd_weights", "cli.convert_from_nerf_blender_dataset",
-                 "models.sd.controllers", "models.sd.seq_aligner", "data.blender"):
+                 "models.sd.controllers", "models.sd.seq_aligner", "data.blender", "grid.feature_voxels",
+                 "train.grid_refine"):
         assert f"voxe_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -58,11 +60,16 @@ def test_port_imports_no_jax_or_reference_package():
 
 
 def test_wrapper_cpu_path_counts_no_launch():
-    q = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16)
-    before = fa.LAUNCHES
+    """A CPU tensor takes the plain version, which autograd differentiates
+    (requires_grad is accepted: the card's route has a backward kernel), and
+    counts no forward or backward launch."""
+    q = torch.randn(1, 8, 2, 64, dtype=torch.bfloat16, requires_grad=True)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD)
     out = fa.flash_attention(q, q, q)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert fa.LAUNCHES == before
+    out.float().sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD) == before
 
 
 @pytest.fixture

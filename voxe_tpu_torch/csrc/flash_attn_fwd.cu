@@ -46,6 +46,12 @@
 //    the SM's schedulers.
 //  * epilogue: divide by the row sum, round to bf16, stage the tile in the
 //    warpgroup's own (consumed) Q rows in the swizzled layout, TMA store.
+//    When the caller passes an lse buffer ([B, h, Lq] f32; the backward's
+//    residual, csrc/flash_attn_bwd.cu), the quad that owns a row also writes
+//    its log-sum-exp, m * scale + ln(l), from the running max and sum it
+//    already holds: 4 bytes a row, nothing recomputed. The write is a
+//    template switch (kLse): a null lse launches the instantiation without
+//    it, the same code a no-grad call ran before the backward existed.
 //  * 320 tiles at the main shape on 132 SMs, one block an SM: 2.42 waves.
 // Key tiles are 128 wide at d = 64 and 64 wide at d = 128, where S (n/2
 // registers a thread), P (n/4) and O (d/2) would otherwise pass the 168
@@ -346,9 +352,10 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[N / 4], const float (&s)[N 
   for (int i = 0; i < N / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
 }
 
-template <int D>
+template <int D, bool kLse>
 __device__ __forceinline__ void consumer(int wg, uint32_t q_s, uint32_t k_s, uint32_t v_s, uint32_t bar,
-                                         const CUtensorMap* tm_o, int Lq, int Lk, float scale_log2) {
+                                         const CUtensorMap* tm_o, float* __restrict__ lse, int Lq, int Lk,
+                                         float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = kStages, N = C::kBlockN;
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
@@ -439,6 +446,14 @@ __device__ __forceinline__ void consumer(int wg, uint32_t q_s, uint32_t k_s, uin
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = warp * 16 + (lane >> 2);  // rows r0 and r0 + 8 of the warpgroup's 64
+  if (kLse && (lane & 3) == 0) {
+    // natural-log units of the scaled scores: ln(sum_j exp(s_j * scale))
+    constexpr float kLn2 = 0.6931471805599453f;
+    const int row = blockIdx.x * kBlockM + wg * 64 + r0;
+    float* lse_bh = lse + (static_cast<long>(blockIdx.z) * gridDim.y + blockIdx.y) * Lq;
+    if (row < Lq) lse_bh[row] = (m0 * scale_log2 + log2f(l0)) * kLn2;
+    if (row + 8 < Lq) lse_bh[row + 8] = (m1 * scale_log2 + log2f(l1)) * kLn2;
+  }
 #pragma unroll
   for (int c = 0; c < D / 64; ++c) {
     const uint32_t box = q_wg + c * kQBoxBytes;
@@ -464,11 +479,11 @@ __device__ __forceinline__ void consumer(int wg, uint32_t q_s, uint32_t k_s, uin
   }
 }
 
-template <int D>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o, int Lq,
-                     int Lk, float scale_log2) {
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                     float* __restrict__ lse, int Lq, int Lk, float scale_log2) {
   using C = Cfg<D>;
   constexpr int S = kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -514,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consumer<D>(wg - 1, q_s, k_s, v_s, bar, &tm_o, Lq, Lk, scale_log2);
+    consumer<D, kLse>(wg - 1, q_s, k_s, v_s, bar, &tm_o, lse, Lq, Lk, scale_log2);
   }
 }
 
@@ -563,35 +578,44 @@ bool make_maps(Maps* m, const void* q, const void* k, const void* v, const void*
          make_map(enc, &m->v, v, B, Lk, H, D, n) && make_map(enc, &m->o, o, B, Lq, H, D, 64);
 }
 
-template <int D>
-int launch(const Maps& m, int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t s) {
+template <int D, bool kLse>
+int launch(const Maps& m, float* lse, int B, int H, int Lq, int Lk, float scale_log2, cudaStream_t s) {
   static uint64_t smem_set = 0;  // devices whose launch limit has been raised (a bit each)
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= 64 || !(smem_set >> dev & 1)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::kSmemBytes);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Cfg<D>::kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < 64) smem_set |= uint64_t(1) << dev;
   }
   const dim3 grid((Lq + kBlockM - 1) / kBlockM, H, B);
-  flash_fwd_kernel<D><<<grid, kThreads, Cfg<D>::kSmemBytes, s>>>(m.q, m.k, m.v, m.o, Lq, Lk, scale_log2);
+  flash_fwd_kernel<D, kLse><<<grid, kThreads, Cfg<D>::kSmemBytes, s>>>(m.q, m.k, m.v, m.o, lse, Lq, Lk, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, o: [B, Lq, H, D]; k, v: [B, Lk, H, D]; all bf16, contiguous, 16-byte
-// aligned; D in {64, 128}; scale > 0. Encodes the four TMA descriptors,
-// launches on `stream` and returns cudaGetLastError() (0 = launched).
-extern "C" int voxe_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, int B, int H, int Lq,
-                                   int Lk, int D, float scale, void* stream) {
+// aligned; D in {64, 128}; scale > 0. lse: null, or [B, H, Lq] f32 that
+// receives each row's log-sum-exp of the scaled scores. Encodes the four TMA
+// descriptors, launches on `stream` and returns cudaGetLastError() (0 =
+// launched).
+extern "C" int voxe_flash_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+                                   int Lq, int Lk, int D, float scale, void* stream) {
   if ((D != 64 && D != 128) || !(scale > 0.f) || Lq < 1 || Lk < 1) return static_cast<int>(cudaErrorInvalidValue);
   Maps m;
   if (!make_maps(&m, q, k, v, o, B, H, Lq, Lk, D)) return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return D == 64 ? launch<64>(m, B, H, Lq, Lk, scale_log2, s) : launch<128>(m, B, H, Lq, Lk, scale_log2, s);
+  float* l = static_cast<float*>(lse);
+  if (l == nullptr) {
+    return D == 64 ? launch<64, false>(m, l, B, H, Lq, Lk, scale_log2, s)
+                   : launch<128, false>(m, l, B, H, Lq, Lk, scale_log2, s);
+  }
+  return D == 64 ? launch<64, true>(m, l, B, H, Lq, Lk, scale_log2, s)
+                 : launch<128, true>(m, l, B, H, Lq, Lk, scale_log2, s);
 }
 
 // Host cost of encoding the four descriptors of one call, in microseconds,

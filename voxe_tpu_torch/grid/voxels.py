@@ -183,6 +183,15 @@ def _resize_matrix(n_in: int, n_out: int, device) -> torch.Tensor:
     return w.to(torch.float32).to(device)
 
 
+def resize_trilinear(unified: torch.Tensor, output_size: Tuple[int, int, int]) -> torch.Tensor:
+    """[X, Y, Z, C] -> [*output_size, C], separable along the three axes
+    (jax.image.resize's "trilinear")."""
+    for axis in range(3):
+        m = _resize_matrix(unified.shape[axis], int(output_size[axis]), unified.device)
+        unified = torch.movedim(torch.tensordot(m, torch.movedim(unified, axis, 0), dims=1), 0, axis)
+    return unified
+
+
 def scale_voxel_grid(grid: VoxelGrid, output_size: Tuple[int, int, int], include_attn: bool = False) -> VoxelGrid:
     """Trilinearly resample the grid to `output_size`; the voxel size
     rescales so the world-space AABB is kept. With `include_attn` the first
@@ -193,11 +202,7 @@ def scale_voxel_grid(grid: VoxelGrid, output_size: Tuple[int, int, int], include
         if grid.attn is None:
             raise ValueError("include_attn: grid has no attn channel")
         channels.append(grid.attn)
-    unified = torch.cat(channels, dim=-1).float()
-    dev = unified.device
-    for axis in range(3):
-        m = _resize_matrix(unified.shape[axis], int(output_size[axis]), dev)
-        unified = torch.movedim(torch.tensordot(m, torch.movedim(unified, axis, 0), dims=1), 0, axis)
+    unified = resize_trilinear(torch.cat(channels, dim=-1).float(), output_size)
     vs, dims = grid.config.voxel_size, grid.grid_dims
     new_voxel_size = VoxelSize(
         vs.x_size * dims[0] / output_size[0],

@@ -1,22 +1,30 @@
-"""Flash-attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written Hopper kernels, forward and backward,
+and their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel that voxe_tpu's UNet self-attention calls
+Replaces the Pallas TPU kernels that voxe_tpu's UNet self-attention calls
 (`voxe_tpu/models/sd/unet.py:156-171`, JAX's library
-`jax.experimental.pallas.ops.tpu.flash_attention.flash_attention`, forward
-only): non-causal, unmasked softmax(Q K^T * d^-1/2) V without forming the
-[B, h, Q, K] scores. The CUDA source is `voxe_tpu_torch/csrc/flash_attn_fwd.cu`;
-it is compiled with nvcc for sm_90a into a shared library with a plain C
-interface at first use and loaded with ctypes. The kernel loads and stores
-through TMA descriptors that the C entry point encodes on every call
-(`encode_us` measures that host cost).
+`jax.experimental.pallas.ops.tpu.flash_attention.flash_attention`):
+non-causal, unmasked softmax(Q K^T * d^-1/2) V without forming the
+[B, h, Q, K] scores, and its custom VJP (`_flash_attention_bwd`, over the
+dK/dV and dQ kernels). The CUDA sources are
+`voxe_tpu_torch/csrc/flash_attn_fwd.cu` and `flash_attn_bwd.cu`; each is
+compiled with nvcc for sm_90a into a shared library with a plain C interface
+at first use and loaded with ctypes. The forward loads and stores through
+TMA descriptors that its C entry point encodes on every call (`encode_us`
+measures that host cost).
 
 Layout is [B, Q, h, d] (the UNet's own layout before a head transpose), bf16
-in and out, d in {64, 128}. A CPU tensor goes to `flash_attention_reference`;
-a CUDA tensor goes to the kernel or the call raises — there is no fallback.
-`LAUNCHES` counts kernel launches and nothing else; `REFERENCE_ON_CUDA`
-counts calls of the plain version on a CUDA tensor, which no path of the
-port makes (the UNet's other attention goes to the library's SDPA).
+in and out, d in {64, 128}. A CPU tensor goes to `flash_attention_reference`
+(autograd differentiates it); a CUDA tensor goes to the kernels or the call
+raises — there is no fallback. On the card `flash_attention` is an autograd
+function when grad mode is on and an input requires grad: its forward then
+also writes the row log-sum-exp ([B, h, Q] f32) that the backward kernels
+read, and its backward launches them; otherwise the forward writes no LSE.
+`LAUNCHES` counts forward kernel launches and `LAUNCHES_BWD` backward
+launches (each launches the dK/dV kernel and then the dQ kernel), and
+nothing else; `REFERENCE_ON_CUDA` counts calls of either plain version on a
+CUDA tensor, which no path of the port makes (the UNet's other attention goes
+to the library's SDPA).
 """
 from __future__ import annotations
 
@@ -32,21 +40,31 @@ SUPPORTED_HEAD_DIMS = (64, 128)
 
 _LIB = CudaLibrary(
     "flash_attn_fwd.cu", "voxe_flash_attn_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
 )
-LAUNCHES = 0  # kernel launches since import (or the last reset)
+_LIB_BWD = CudaLibrary(
+    "flash_attn_bwd.cu", "voxe_flash_attn_bwd",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p],
+)
+LAUNCHES = 0  # forward kernel launches since import (or the last reset)
+LAUNCHES_BWD = 0  # backward launches (dK/dV kernel + dQ kernel) since import (or the last reset)
 REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import (or the last reset)
 
 
 def reset_launches() -> None:
-    global LAUNCHES, REFERENCE_ON_CUDA
-    LAUNCHES = REFERENCE_ON_CUDA = 0
+    global LAUNCHES, LAUNCHES_BWD, REFERENCE_ON_CUDA
+    LAUNCHES = LAUNCHES_BWD = REFERENCE_ON_CUDA = 0
 
 
 def build(verbose: bool = False):
-    """Compile the kernel (once per source content) and return the library
-    path. `verbose` prints ptxas' report when a build happens."""
+    """Compile the forward kernel (once per source content) and return the
+    library path. `verbose` prints ptxas' report when a build happens."""
     return _LIB.build(verbose)
+
+
+def build_bwd(verbose: bool = False):
+    """The same for the backward kernels."""
+    return _LIB_BWD.build(verbose)
 
 
 def encode_us(q, k, v, out, iters: int = 1000) -> float:
@@ -62,57 +80,169 @@ def encode_us(q, k, v, out, iters: int = 1000) -> float:
     return us
 
 
+def _count_reference(x) -> None:
+    global REFERENCE_ON_CUDA
+    if x.device.type == "cuda":
+        REFERENCE_ON_CUDA += 1
+
+
 def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: scores and softmax in f32, output in q's dtype.
     q [B, Q, h, d], k/v [B, K, h, d] -> [B, Q, h, d]."""
-    global REFERENCE_ON_CUDA
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda":
-        REFERENCE_ON_CUDA += 1
+    _count_reference(q)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
-def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(Q K^T * scale) V over [B, Q, h, d] tensors (default scale
-    d^-1/2). CPU tensors take the plain version; CUDA tensors the kernel."""
+def flash_attention_lse_reference(q, k, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain row log-sum-exp of the scaled scores, [B, h, Q] f32: the
+    residual the forward kernel writes for the backward."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.device != q.device:
-            raise ValueError(f"flash_attention: {name} on {x.device}, q on {q.device}")
+    _count_reference(q)
+    return torch.logsumexp(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale, dim=-1)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, scale: Optional[float] = None):
+    """Plain backward in f32, the explicit formula (no autograd): with
+    P = exp(Q K^T * scale - lse) and Di = rowsum(dO * O),
+    dV = P^T dO, dS = P * (dO V^T - Di), dK = dS^T Q * scale,
+    dQ = dS K * scale. q, o, do [B, Q, h, d]; k, v [B, K, h, d]; lse
+    [B, h, Q]. Returns (dq, dk, dv) in f32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    _count_reference(q)
+    q, k, v, o, do = (x.float() for x in (q, k, v, o, do))
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale - lse.float()[..., None])
+    di = torch.einsum("bqhd,bqhd->bhq", do, o)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) - di[..., None])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    return dq, dk, dv
+
+
+def _check_inputs(name_tensors, scale: float) -> None:
+    """What the kernels take: bf16 [B, L, h, d] CUDA tensors on one device,
+    contiguous and 16-byte aligned, d in SUPPORTED_HEAD_DIMS, scale > 0."""
+    first = name_tensors[0][1]
+    for name, x in name_tensors:
+        if x.device != first.device:
+            raise ValueError(f"flash_attention: {name} on {x.device}, q on {first.device}")
         if x.dtype != torch.bfloat16:
             raise ValueError(f"flash_attention: {name} must be bfloat16, got {x.dtype}")
         if x.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, L, h, d], got {tuple(x.shape)}")
         if not x.is_contiguous() or x.data_ptr() % 16 != 0:
             raise ValueError(f"flash_attention: {name} must be contiguous and 16-byte aligned")
-        if x.requires_grad:
-            raise ValueError("flash_attention: forward only; no path needs its backward yet")
+    q, k, v = (t for _, t in name_tensors[:3])
     B, Lq, H, D = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (H, D):
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {SUPPORTED_HEAD_DIMS}")
-    Lk = k.shape[1]
-    if Lq == 0 or Lk == 0:
+    if Lq == 0 or k.shape[1] == 0:
         raise ValueError("flash_attention: empty sequence")
     if not scale > 0.0:
         raise ValueError(f"flash_attention: the kernel takes a positive scale, got {scale}")
+
+
+def _forward_kernel(q, k, v, scale: float, with_lse: bool):
+    """One forward launch: (out, lse or None)."""
+    _check_inputs((("q", q), ("k", k), ("v", v)), scale)
+    B, Lq, H, D = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _LIB.function()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, H, Lq, Lk, D, float(scale), stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+        B, H, Lq, k.shape[1], D, float(scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
     global LAUNCHES
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def _cuda_device(q) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def flash_attention_with_lse(q, k, v, scale: Optional[float] = None):
+    """(softmax(Q K^T * scale) V, row log-sum-exp [B, h, Q] f32): the
+    forward with the residual the backward reads. CPU tensors take the plain
+    versions; CUDA tensors one kernel launch."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale), flash_attention_lse_reference(q, k, scale)
+    _cuda_device(q)
+    return _forward_kernel(q, k, v, scale, with_lse=True)
+
+
+def flash_attention_backward(q, k, v, o, lse, do, scale: Optional[float] = None):
+    """(dq, dk, dv) of softmax(Q K^T * scale) V at the upstream gradient
+    `do`, from the forward's inputs, output `o` and row log-sum-exp `lse`.
+    CPU tensors take the plain backward (f32 out); CUDA tensors (bf16, as the
+    forward; lse f32 [B, h, Q]) the kernels, bf16 out."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    _cuda_device(q)
+    _check_inputs((("q", q), ("k", k), ("v", v), ("o", o), ("do", do)), scale)
+    B, Lq, H, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_backward: o{tuple(o.shape)} and do{tuple(do.shape)} must be q's shape")
+    if lse.dtype != torch.float32 or lse.shape != (B, H, Lq) or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"flash_attention_backward: lse must be contiguous f32 [B, h, Q] on {q.device}")
+    # Di = rowsum(dO * O), as JAX computes it outside its kernels
+    di = torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _LIB_BWD.function()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Lq, k.shape[1], D, float(scale), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
+    global LAUNCHES_BWD
+    LAUNCHES_BWD += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel forward with its LSE residual; the kernel backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(Q K^T * scale) V over [B, Q, h, d] tensors (default scale
+    d^-1/2). CPU tensors take the plain version; CUDA tensors the kernel,
+    differentiable through the backward kernels when grad mode is on and an
+    input requires grad."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    _cuda_device(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _forward_kernel(q, k, v, scale, with_lse=False)[0]

@@ -1,6 +1,7 @@
 """Render configuration and the exact SH-voxel-grid render procedure
 (counterpart of voxe_tpu/render/interface.py: sampler -> point processor ->
-accumulator), for the colour and for the attention channel."""
+accumulator), for the colour, for the attention channel, and for the
+feature-voxel grid."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,9 +9,11 @@ from typing import Optional
 
 import torch
 
+from voxe_tpu_torch.grid.feature_voxels import FeatureVoxelGrid
 from voxe_tpu_torch.grid.voxels import VoxelGrid
 from voxe_tpu_torch.render.accumulate import RenderOut, accumulate_radiance_density_on_rays
 from voxe_tpu_torch.render.process import (
+    process_points_with_feature_voxel_grid,
     process_points_with_sh_voxel_grid,
     process_points_with_sh_voxel_grid_attn,
 )
@@ -86,6 +89,35 @@ def render_sh_voxel_grid(
 
         return fused_shade_composite(voxel_grid, sampled, rays, config, generator, extra_debug_info)
     processed = process_points_with_sh_voxel_grid(
+        sampled, rays, voxel_grid, render_diffuse=config.render_diffuse
+    )
+    return accumulate_radiance_density_on_rays(
+        processed,
+        sampled.depths,
+        rays,
+        stochastic_density_noise_std=config.stochastic_density_noise_std,
+        white_bkgd=config.white_bkgd,
+        background_value=1.0,
+        extra_debug_info=extra_debug_info,
+        generator=generator,
+    )
+
+
+def render_feature_voxel_grid(
+    voxel_grid: FeatureVoxelGrid,
+    rays: Rays,
+    config: SHVoxGridRenderConfig,
+    generator: Optional[torch.Generator] = None,
+    extra_debug_info: bool = False,
+    t_rand: Optional[torch.Tensor] = None,
+) -> RenderOut:
+    """Render flat rays against the feature-voxel grid (grid + MLP head),
+    through the plain compositor as the JAX package does
+    (`config.use_fused_kernel` is not read here). Generator and `t_rand`
+    as for `render_sh_voxel_grid`."""
+    rays = flatten_rays(rays)
+    sampled = _sample(voxel_grid, rays, config, generator, t_rand)
+    processed = process_points_with_feature_voxel_grid(
         sampled, rays, voxel_grid, render_diffuse=config.render_diffuse
     )
     return accumulate_radiance_density_on_rays(

@@ -1,12 +1,13 @@
 """Point processing: voxel-grid query + SH shading at sampled ray points
-(counterpart of voxe_tpu/render/process.py: the SH grid and its attention
-channel)."""
+(counterpart of voxe_tpu/render/process.py: the SH grid, its attention
+channel, and the feature-voxel grid's MLP decode)."""
 from __future__ import annotations
 
 import math
 
 import torch
 
+from voxe_tpu_torch.grid.feature_voxels import FeatureVoxelGrid, feature_grid_query
 from voxe_tpu_torch.grid.voxels import VoxelGrid, grid_query, grid_query_attn, test_inside_volume
 from voxe_tpu_torch.render.rays import Rays
 from voxe_tpu_torch.render.sample import SampledPointsOnRays
@@ -55,6 +56,31 @@ def process_points_with_sh_voxel_grid(
     return _shade_and_mask(
         voxel_grid, flat_points, interpolated, rays, num_samples, NUM_COLOUR_CHANNELS, render_diffuse
     )
+
+
+def process_points_with_feature_voxel_grid(
+    sampled_points: SampledPointsOnRays,
+    rays: Rays,
+    voxel_grid: FeatureVoxelGrid,
+    render_diffuse: bool = False,
+) -> torch.Tensor:
+    """[N, S, 3+1]: per-sample (raw rgb from the MLP head, raw density) for
+    the feature-voxel grid; outside the AABB radiance is -INFINITY (sigmoid
+    0) and density 0, as on the SH path. `render_diffuse` is accepted for
+    the same interface: the MLP's radiance is view-independent already."""
+    del render_diffuse
+    num_samples = sampled_points.points.shape[1]
+    flat_points = sampled_points.points.reshape(-1, 3)
+    decoded = feature_grid_query(voxel_grid, flat_points)  # [N*S, 4]
+    inside = test_inside_volume(voxel_grid.aabb, flat_points).reshape(-1, num_samples, 1)
+    raw_radiance = torch.where(
+        inside, decoded[..., :-1].reshape(-1, num_samples, NUM_COLOUR_CHANNELS),
+        torch.full((), -INFINITY, device=inside.device),
+    )
+    raw_densities = torch.where(
+        inside, decoded[..., -1:].reshape(-1, num_samples, 1), torch.zeros((), device=inside.device)
+    )
+    return torch.cat([raw_radiance, raw_densities], dim=-1)
 
 
 def process_points_with_sh_voxel_grid_attn(
