@@ -10,8 +10,12 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      paths' shapes plus ragged and hard shapes; kernel, plain and library
      (timed only, never used by the port) times against the kernel's bound;
      the flash backward (flash-bwd-kernel) at the forward's check shapes and
-     the timed shapes, against the plain f32 backward, the forward with and
-     without its LSE output, SDPA's backward as the library time;
+     the timed shapes: its main pass against the plain f32 backward, its
+     preprocess and postprocess launches against their plain versions, a
+     second call run to run (dk, dv bitwise), the forward with and without
+     its LSE output, SDPA's backward as the library time, the three
+     launches' device split (torch.profiler), the TMA-encode host cost, and
+     ptxas' registers and spills of every kernel from the build;
   4. small-input checks: the tiny edit step's and a 16^3 shear-warp recon
      step's grid gradients on the card against the same step on the CPU;
   5. the edit main path at full width: the SDS edit step (SD 2.0 at its
@@ -112,6 +116,7 @@ import dataclasses
 import json
 import logging
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -281,10 +286,24 @@ def phase_flash_kernel(dev) -> dict:
 # over L keys or queries average those roundings out; a wrong term (a
 # missing scale, Di or transpose) is O(1) relative. The kernel's LSE is held
 # at FLASH_LSE_TOL absolute (natural-log units; f32 sums in another order and
-# ex2.approx: ~1e-6).
+# ex2.approx: ~1e-6). Of the backward's three launches, the preprocess is held
+# at FLASH_DI_REL_TOL of max|Di| (f32 sums of d products in another order:
+# ~d * 2^-24) with its padded LSE exactly the plain version's, and the
+# postprocess bitwise. A second call on the same inputs gives dk and dv
+# bitwise (each block owns its keys); dq's key-block partials are added into
+# the f32 workspace in the order the blocks finish, so the workspace is held
+# at FLASH_DQ_RUN_TOL of its max (~Lk / 128 f32 adds reordered: ~1e-6; a lost
+# or doubled partial is ~1 / (Lk / 128)) and the bf16 dq within one bf16 ulp
+# of each element plus FLASH_DQ_RUN_TOL of max|dq|: an f32 sum near a
+# rounding boundary flips the last bit (2^-9 to 2^-8 of max|dq| at the
+# largest elements), and an element near 0 is the workspace's own run-to-run
+# noise, which may change its sign.
 FLASH_BWD_REL_TOL = 2e-2
 FLASH_LSE_TOL = 1e-3
+FLASH_DI_REL_TOL = 1e-5
+FLASH_DQ_RUN_TOL = 1e-4
 BWD_CHECKS = CHECKS + ((LEVEL32_SHAPE, None, 1.0),)
+BWD_LAUNCH_NAMES = {"flash_bwd_pre_kernel": "pre", "flash_bwd_kernel": "main", "flash_bwd_post_kernel": "post"}
 
 
 def flash_bwd_bound_ms(shape, lk=None) -> tuple:
@@ -298,10 +317,39 @@ def flash_bwd_bound_ms(shape, lk=None) -> tuple:
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def within_bf16_ulp(a, b, floor: float) -> bool:
+    """|a - b| <= one bf16 ulp of max(|a|, |b|) + floor, element by element."""
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()))) - 7)
+    return bool(((a - b).abs() <= ulp + floor).all())
+
+
+def bwd_launch_split_ms(fn, calls: int = 5, passes: int = 3) -> dict:
+    """Device ms per call of each of the backward's three launches, from a
+    torch.profiler pass over `calls` calls (another pass, up to `passes`,
+    when a profile lacks one of the three, as one has in a run)."""
+    for _ in range(passes):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            for kernel, label in BWD_LAUNCH_NAMES.items():
+                if f"::{kernel}<" in e.key:
+                    split[label] = e.device_time_total / e.count / 1e3
+        if set(split) == set(BWD_LAUNCH_NAMES.values()):
+            return split
+    raise AssertionError(f"flash_attn_bwd: {passes} profiles lack a launch: {split}")
+
+
 def phase_flash_bwd_kernel(dev) -> dict:
-    """The backward kernels against the plain backward at the forward's
-    check shapes and the timed shapes; the forward with and without its LSE
-    output; kernel, plain and SDPA-backward times against the bound."""
+    """The backward's kernels against the plain versions at the forward's
+    check shapes and the timed shapes (the main pass against the plain
+    backward, the preprocess and postprocess against theirs), a second call
+    run to run; the forward with and without its LSE output; kernel, plain
+    and SDPA-backward times against the bound, the three launches' split and
+    the TMA-encode host cost."""
     g = torch.Generator(device=dev).manual_seed(2)
     errs = []
     for shape, lk, q_scale in BWD_CHECKS:
@@ -311,25 +359,44 @@ def phase_flash_bwd_kernel(dev) -> dict:
         do = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
         out, lse = fa.flash_attention_with_lse(q, k, v)
         same_out = bool(torch.equal(out, fa.flash_attention(q, k, v)))
-        grads = fa.flash_attention_backward(q, k, v, out, lse, do)
+        scale = 1.0 / shape[-1] ** 0.5
+        *grads, di, lse2, dq_accum = fa.backward_kernels(q, k, v, out, lse, do, scale)
+        *again, _, _, accum_again = fa.backward_kernels(q, k, v, out, lse, do, scale)
         torch.cuda.synchronize()
         qf, kf, vf = q.float(), k.float(), v.float()
         lse_ref = fa.flash_attention_lse_reference(qf, kf)
         refs = fa.flash_attention_backward_reference(qf, kf, vf, fa.flash_attention_reference(qf, kf, vf), lse_ref, do)
         lse_err = float((lse - lse_ref).abs().max())
         rel = {n: float((a.float() - r).abs().max() / r.abs().max()) for n, a, r in zip(("dq", "dk", "dv"), grads, refs)}
+        di_ref, lse2_ref = fa.flash_attention_bwd_preprocess_reference(out, do, lse, fa.BWD_Q_TILE[shape[-1]])
+        di_rel = float((di - di_ref).abs().max() / di_ref.abs().max())
+        lse2_same = bool(torch.equal(lse2, lse2_ref))
+        post_same = bool(torch.equal(grads[0], fa.flash_attention_dq_postprocess_reference(dq_accum, scale, shape[1])))
+        dkv_bitwise = bool(torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]))
+        accum_run = float((dq_accum - accum_again).abs().max() / dq_accum.abs().max())
+        dq_ulp = within_bf16_ulp(grads[0], again[0], FLASH_DQ_RUN_TOL * float(grads[0].float().abs().max()))
         log("kernel-check", kernel="flash_attn_bwd", shape=list(shape), lk=kv_shape[1], q_scale=q_scale,
             rel_err=rel, max_abs_err=max(float((a.float() - r).abs().max()) for a, r in zip(grads, refs)),
-            rel_tol=FLASH_BWD_REL_TOL, lse_max_abs_err=lse_err, lse_tol=FLASH_LSE_TOL, fwd_same_with_lse=same_out)
+            rel_tol=FLASH_BWD_REL_TOL, lse_max_abs_err=lse_err, lse_tol=FLASH_LSE_TOL, fwd_same_with_lse=same_out,
+            pre_di_rel_err=di_rel, pre_di_tol=FLASH_DI_REL_TOL, pre_lse_same=lse2_same, post_same=post_same,
+            run_to_run_dk_dv_bitwise=dkv_bitwise, run_to_run_dq_accum_rel=accum_run,
+            run_to_run_dq_accum_tol=FLASH_DQ_RUN_TOL, run_to_run_dq_within_bf16_ulp=dq_ulp,
+            run_to_run_dq_rel=float((grads[0].float() - again[0].float()).abs().max() / grads[0].float().abs().max()))
         if not (max(rel.values()) < FLASH_BWD_REL_TOL and lse_err < FLASH_LSE_TOL and same_out):
             raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {rel}, lse {lse_err}, {same_out}")
+        if not (di_rel <= FLASH_DI_REL_TOL and lse2_same and post_same):
+            raise AssertionError(f"flash_attn_bwd pre/post kernels: Di {di_rel}, lse {lse2_same}, dq {post_same}")
+        if not (dkv_bitwise and accum_run <= FLASH_DQ_RUN_TOL and dq_ulp):
+            raise AssertionError(f"flash_attn_bwd run to run: dk/dv bitwise {dkv_bitwise}, dq workspace {accum_run}, "
+                                 f"dq within a bf16 ulp {dq_ulp}")
         errs.append(max(float((a.float() - r).abs().max()) for a, r in zip(grads, refs)))
-        del refs, grads, lse_ref
+        del refs, grads, again, lse_ref, di_ref, lse2_ref, dq_accum, accum_again
     times = {}
     for shape in (MAIN_SHAPE, LEVEL32_SHAPE, D128_SHAPE):
         q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(4))
         out, lse = fa.flash_attention_with_lse(q, k, v)
         ms = time_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, do))
+        split = bwd_launch_split_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, do))
         plain_ms = time_ms(lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, do), iters=5, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
@@ -340,10 +407,16 @@ def phase_flash_bwd_kernel(dev) -> dict:
         bound, bound_by = flash_bwd_bound_ms(shape)
         B, L, Hh, D = shape
         times[shape] = (ms, plain_ms, library_ms, bound, bound_by)
-        log("kernel-time", kernel="flash_attn_bwd", shape=list(shape), ms=ms, ms_note="the wrapper: Di + both kernels",
+        log("kernel-time", kernel="flash_attn_bwd", shape=list(shape), ms=ms,
+            ms_note="the wrapper: preprocess + main + postprocess", launch_split_ms=split,
             plain_ms=plain_ms, sdpa_bwd_ms=library_ms, bound_ms=bound, share_of_bound=bound / ms,
-            tflops_of_bound_work=5 * 2.0 * B * Hh * L * L * D / ms / 1e9, fwd_ms=fwd_ms, fwd_with_lse_ms=fwd_lse_ms)
+            tflops_of_bound_work=5 * 2.0 * B * Hh * L * L * D / ms / 1e9, fwd_ms=fwd_ms, fwd_with_lse_ms=fwd_lse_ms,
+            key_blocks=-(-L // 128) * Hh * B,
+            waves=-(-L // 128) * Hh * B / torch.cuda.get_device_properties(0).multi_processor_count)
         del sdpa_out, qt, kt, vt
+    q = torch.randn(MAIN_SHAPE, device=dev, dtype=torch.bfloat16)
+    log("kernel-host", kernel="flash_attn_bwd", what="TMA descriptor encoding per call (4 maps: q, k, v, dO)",
+        us=fa.encode_us_bwd(q, q, q, q))
     ms, plain_ms, library_ms, bound, bound_by = times[MAIN_SHAPE]
     return dict(
         name="flash_attn_bwd", route="cuda", source="voxe_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -1790,6 +1863,13 @@ def build_all() -> None:
         for name, fut in futures.items():
             fut.result()  # raises if nvcc failed
     log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
+    for name, lib in (("flash_attn_fwd", fa._LIB), ("flash_attn_bwd", fa._LIB_BWD), ("composite_fwd", comp._LIB)):
+        if lib.report is None:
+            log("ptxas", lib=name, note="not built in this process (a library of the same source was there)")
+            continue
+        for entry, props in cuda_build.ptxas_summary(lib.report).items():
+            m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E)?", entry)
+            log("ptxas", lib=name, kernel=m.group(1) if m else entry, d=m.group(2) if m else None, **props)
 
 
 BWD_PHASES = ("flash-bwd-kernel", "unet-grad")  # the only phases that run the flash backward

@@ -2,12 +2,14 @@
 `flash_attention_backward_reference` against the JAX library's own reference
 backward (`mha_reference_bwd`, reached as its custom VJP reaches it), the
 autograd of the port's `flash_attention` against `jax.vjp` of
-`mha_reference`, the UNet's `CrossAttention` at a gate-admitted shape and the
-tiny UNet's latent gradient against `jax.grad` of the JAX modules. Inputs are
-made with numpy from a seed; everything runs in f32. Tests marked `cuda` hold
-the backward kernels against the plain backward on a card (skipped without
-one). The card's machine has no JAX, so the JAX imports are optional and only
-the `cuda` tests run there."""
+`mha_reference`, the plain versions of the backward's preprocess and
+postprocess kernels (Di, the padded LSE, the tile-ordered dQ workspace)
+against the library's Di, the UNet's `CrossAttention` at a gate-admitted
+shape and the tiny UNet's latent gradient against `jax.grad` of the JAX
+modules. Inputs are made with numpy from a seed; everything runs in f32.
+Tests marked `cuda` hold the backward kernels against the plain versions on a
+card (skipped without one). The card's machine has no JAX, so the JAX imports
+are optional and only the `cuda` tests run there."""
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,7 @@ except ImportError:  # the card's machine: only the `cuda` tests below run there
 from voxe_tpu_torch.models.sd import unet as tunet
 from voxe_tpu_torch.models.sd.sds import StableDiffusion as TSD
 from voxe_tpu_torch.models.sd.weights import from_flax_params
+from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -101,6 +104,116 @@ def test_autograd_matches_jax_vjp():
         assert _rel_err(t.grad.numpy(), _blhd(j)) < 1e-5
 
 
+RAGGED = [(lq, d) for lq in (1000, 2500, 4095) for d in (64, 128)]
+
+
+@pytest.mark.parametrize("lq,d", RAGGED)
+def test_preprocess_reference_matches_library_di(lq, d):
+    """The preprocess's plain version against the JAX library on bf16 o and
+    dO: Di as `_flash_attention_bwd` writes it (library :273, the f32 rowsum
+    of o * do) within 1e-5 of max|Di| (f32 sums in another order), lse times
+    log2(e), and the padding to the query tile: Di 0 and lse +inf, so
+    P = exp2(S * scale * log2(e) - lse * log2(e)) is exactly 0 there."""
+    rng = np.random.default_rng(lq + d)
+    B, H = 1, 2
+    o, do = (rng.standard_normal((B, lq, H, d)).astype(np.float32) for _ in range(2))
+    lse = rng.standard_normal((B, H, lq)).astype(np.float32) * 3.0
+    to, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (o, do))
+    tile = fa.BWD_Q_TILE[d]
+    di, lse2 = fa.flash_attention_bwd_preprocess_reference(to, tdo, torch.from_numpy(lse), tile)
+    lq_pad = -(-lq // tile) * tile
+    assert di.shape == lse2.shape == (B, H, lq_pad) and di.dtype == lse2.dtype == torch.float32
+    jo, jdo = (jnp.asarray(_bhld(x.float().numpy())).astype(jnp.bfloat16) for x in (to, tdo))
+    jdi = jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), axis=-1)
+    assert _rel_err(di[..., :lq].numpy(), np.asarray(jdi)) < 1e-5
+    np.testing.assert_allclose(lse2[..., :lq].numpy(), lse * np.float32(np.log2(np.e)), rtol=1e-6, atol=0)
+    assert torch.all(di[..., lq:] == 0) and torch.all(lse2[..., lq:] == np.inf)
+    s = torch.from_numpy(rng.standard_normal((B, H, lq_pad - lq)).astype(np.float32)) * 30.0
+    assert torch.all(torch.exp2(s * 0.125 * np.log2(np.e) - lse2[..., lq:]) == 0)
+
+
+@pytest.mark.parametrize("lq,d", RAGGED)
+def test_preprocess_di_matches_mha_reference_bwd(lq, d):
+    """Di as the library's `mha_reference_bwd` computes it (:1664), read back
+    from its outputs: with the bias gradient dab = dS = P * (dP - Di) and
+    rows of P summing to 1, Di = rowsum(P * dP - dab). The preprocess's plain
+    version from the same o and dO within 1e-5 of max|Di|."""
+    rng = np.random.default_rng(2 * lq + d)
+    B, H, lk = 1, 2, 64
+    q = rng.standard_normal((B, lq, H, d)).astype(np.float32) * 0.125
+    k, v = (rng.standard_normal((B, lk, H, d)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal((B, lq, H, d)).astype(np.float32)
+    jq, jk, jv, jdo = (_bhld(x) for x in (q, k, v, do))
+    ab = jnp.zeros((B, H, lq, lk), jnp.float32)
+    out, l, m = jfa.mha_reference_no_custom_vjp(jq, jk, jv, ab, save_residuals=True)
+    *_, dab = jfa.mha_reference_bwd(jq, jk, jv, ab, None, out, l, m, jdo)
+    p = np.exp(np.einsum("bhqd,bhkd->bhqk", np.asarray(jq), np.asarray(jk)) - np.asarray(m)[..., None])
+    p /= np.asarray(l)[..., None]
+    dp = np.einsum("bhqd,bhkd->bhqk", np.asarray(jdo), np.asarray(jv))
+    di_lib = np.sum(p * dp - np.asarray(dab), axis=-1)
+    di, _ = fa.flash_attention_bwd_preprocess_reference(
+        torch.from_numpy(_blhd(out).copy()), torch.from_numpy(do), torch.zeros((B, H, lq)), fa.BWD_Q_TILE[d])
+    assert _rel_err(di[..., :lq].numpy(), di_lib) < 1e-5
+
+
+def _dq_workspace(dq, lq_pad, rng):
+    """Scatters dq [B, Lq, h, d] into the main kernel's f32 workspace layout
+    by the per-element formula of its register order (the wgmma
+    accumulator: thread tid = 32 warp + 4 g + t4 holds rows 16 warp + g and
+    + 8, columns 8 j + 2 t4 + e; pair i = 2 j + (row half) of a 64 x 64
+    chunk sits at float 2 (128 i + tid) + e), with noise in the padded rows."""
+    B, lq, H, d = dq.shape
+    M = fa.BWD_Q_TILE[d]
+    ws = rng.standard_normal((B, H, lq_pad * d)).astype(np.float32) * 100.0
+    q, c = np.meshgrid(np.arange(lq), np.arange(d), indexing="ij")
+    qi, r, cc = q % M, q % M % 64, c % 64
+    warp, half, g = r // 16, r % 16 // 8, r % 8
+    pair = 2 * (cc // 8) + half
+    tid = 32 * warp + 4 * g + cc % 8 // 2
+    off = (q - qi) * d + (qi // 64 * (d // 64) + c // 64) * 4096 + 2 * (128 * pair + tid) + cc % 2
+    ws[:, :, off] = np.transpose(dq, (0, 2, 1, 3))
+    return ws.reshape(B, H, lq_pad, d)
+
+
+@pytest.mark.parametrize("lq,d", RAGGED)
+def test_dq_postprocess_reference_round_trip(lq, d):
+    """A dq scattered into the workspace's tile order comes back from the
+    postprocess's plain version as (dq * scale) in bf16 [B, Lq, h, d],
+    exactly, whatever the padded rows hold."""
+    rng = np.random.default_rng(3 * lq + d)
+    B, H, scale = 2, 3, 0.37
+    tile = fa.BWD_Q_TILE[d]
+    dq = rng.standard_normal((B, lq, H, d)).astype(np.float32)
+    ws = _dq_workspace(dq, -(-lq // tile) * tile, rng)
+    out = fa.flash_attention_dq_postprocess_reference(torch.from_numpy(ws), scale, lq)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, lq, H, d)
+    want = (torch.from_numpy(dq) * scale).to(torch.bfloat16)
+    assert torch.equal(out, want)
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : Compiling entry function '_ZN4kern16flash_bwd_kernelILi64EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4kern16flash_bwd_kernelILi64EEEv
+    256 bytes stack frame, 516 bytes spill stores, 512 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 256 bytes cumulative stack size
+ptxas info    : Compile time = 272.039 ms
+ptxas info    : Compiling entry function '_ZN4kern20flash_bwd_pre_kernelILi64EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN4kern20flash_bwd_pre_kernelILi64EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+"""
+
+
+def test_ptxas_summary_reads_registers_and_spills():
+    """The build's ptxas report, kernel by kernel, as chip_smoke.py logs it."""
+    got = cuda_build.ptxas_summary(PTXAS_SAMPLE)
+    assert got == {
+        "_ZN4kern16flash_bwd_kernelILi64EEEv": dict(stack=256, spill_stores=516, spill_loads=512, registers=168),
+        "_ZN4kern20flash_bwd_pre_kernelILi64EEEv": dict(stack=0, spill_stores=0, spill_loads=0, registers=32),
+    }
+    assert cuda_build.ptxas_summary("") == {}
+
+
 def test_cross_attention_gradients_match_jax():
     """The UNet's CrossAttention at a shape its flash gate admits (1 x 2048
     queries, one head of 64): on CPU tensors the port's flash route is the
@@ -162,31 +275,102 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,lk,q_scale", [
-    ((2, 4096, 5, 64), None, 1.0),  # the UNet's 64x64 level (CFG batch 2)
-    ((1, 1000, 3, 64), None, 4.0),  # peaked scores
-    ((2, 1000, 3, 64), 777, 1.0),  # ragged, Lq != Lk
-    ((1, 2500, 2, 128), None, 1.0),
-])
-def test_backward_kernels_match_plain_on_card(cuda_device, shape, lk, q_scale):
-    """dq, dk and dv of the kernels against the plain f32 backward from the
-    same bf16 inputs, within 2e-2 of max|ref| (P and dS are bf16 operands)."""
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+def _card_inputs(dev, shape, lk, q_scale, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
     kv = shape if lk is None else (shape[0], lk, *shape[2:])
-    q = torch.randn(shape, generator=g, device=cuda_device, dtype=torch.bfloat16) * q_scale
-    k, v = (torch.randn(kv, generator=g, device=cuda_device, dtype=torch.bfloat16) for _ in range(2))
-    do = torch.randn(shape, generator=g, device=cuda_device, dtype=torch.bfloat16)
-    out, lse = fa.flash_attention_with_lse(q, k, v)
-    before = fa.LAUNCHES_BWD
-    grads = fa.flash_attention_backward(q, k, v, out, lse, do)
-    torch.cuda.synchronize()
-    assert fa.LAUNCHES_BWD == before + 1
+    q = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) * q_scale
+    k, v = (torch.randn(kv, generator=g, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    do = torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+    return q, k, v, do
+
+
+def _hold_backward(q, k, v, do, scale, grads):
+    """dq, dk and dv against the plain f32 backward from the same bf16
+    inputs (its own f32 forward and LSE), within 2e-2 of max|ref| (P and dS
+    are bf16 operands)."""
     qf, kf, vf = q.float(), k.float(), v.float()
     refs = fa.flash_attention_backward_reference(
-        qf, kf, vf, fa.flash_attention_reference(qf, kf, vf), fa.flash_attention_lse_reference(qf, kf), do)
-    for a, r in zip(grads, refs):
-        assert float((a.float() - r).abs().max() / r.abs().max()) < 2e-2
+        qf, kf, vf, fa.flash_attention_reference(qf, kf, vf, scale), fa.flash_attention_lse_reference(qf, kf, scale),
+        do, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert float((a.float() - r).abs().max() / r.abs().max()) < 2e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lk,q_scale,scale", [
+    ((2, 4096, 5, 64), None, 1.0, None),  # the UNet's 64x64 level (CFG batch 2)
+    ((1, 1000, 3, 64), None, 4.0, None),  # peaked scores
+    ((2, 1000, 3, 64), 777, 1.0, None),  # ragged, Lq != Lk, Lk not a multiple of the 128-key block
+    ((1, 2500, 2, 128), None, 1.0, None),
+    ((1, 2500, 2, 128), 1000, 1.0, 0.3),  # a scale other than d^-1/2
+    ((2, 1000, 3, 64), 1000, 1.0, 0.05),
+    ((1, 1, 2, 64), 777, 1.0, None),  # one query: a tile of padding
+    ((1, 1, 2, 128), 1000, 1.0, None),
+])
+def test_backward_kernels_match_plain_on_card(cuda_device, shape, lk, q_scale, scale):
+    """The three kernels of one backward call (one count) against the plain
+    f32 backward, at ragged lengths, Lq != Lk, one query and non-default
+    scales."""
+    q, k, v, do = _card_inputs(cuda_device, shape, lk, q_scale, seed=0)
+    scale = 1.0 / shape[-1] ** 0.5 if scale is None else scale
+    out, lse = fa.flash_attention_with_lse(q, k, v, scale)
+    before = fa.LAUNCHES_BWD
+    grads = fa.flash_attention_backward(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BWD == before + 1
+    _hold_backward(q, k, v, do, scale, grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lk", [((2, 1000, 3, 64), 777), ((1, 2500, 2, 128), 1000)])
+def test_pre_and_post_kernels_match_plain_on_card(cuda_device, shape, lk):
+    """The preprocess kernel's Di within 1e-5 of max|Di| (f32 sums in
+    another order) and its padded LSE exactly as the plain version's; the
+    postprocess kernel's dq bitwise the plain version's on the workspace the
+    main kernel wrote."""
+    q, k, v, do = _card_inputs(cuda_device, shape, lk, 1.0, seed=3)
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    scale = 1.0 / shape[-1] ** 0.5
+    dq, _, _, di, lse2, acc = fa.backward_kernels(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    di_ref, lse2_ref = fa.flash_attention_bwd_preprocess_reference(out, do, lse, fa.BWD_Q_TILE[shape[-1]])
+    assert float((di - di_ref).abs().max()) <= 1e-5 * float(di_ref.abs().max())
+    assert torch.equal(lse2, lse2_ref)
+    assert torch.equal(dq, fa.flash_attention_dq_postprocess_reference(acc, scale, shape[1]))
+
+
+@pytest.mark.cuda
+def test_backward_run_to_run_on_card(cuda_device):
+    """Two calls on the same inputs: dk and dv bitwise equal (each block owns
+    its keys). dq's key-block partials are added into the f32 workspace in
+    the order the blocks finish: the workspaces within 1e-4 of their max (32
+    partials reordered: ~1e-6; one lost or doubled: ~3e-2), and dq within
+    one bf16 ulp of each element plus 1e-4 of max|dq| (a sum near a rounding
+    boundary flips its last bit, 2^-9 to 2^-8 of max|dq| at the largest
+    elements; an element near 0 is the workspace's noise and may change
+    sign)."""
+    q, k, v, do = _card_inputs(cuda_device, (2, 4096, 5, 64), None, 1.0, seed=4)
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    a = fa.backward_kernels(q, k, v, out, lse, do, 0.125)
+    b = fa.backward_kernels(q, k, v, out, lse, do, 0.125)
+    torch.cuda.synchronize()
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    assert float((a[5] - b[5]).abs().max()) <= 1e-4 * float(a[5].abs().max())
+    dqa, dqb = a[0].float(), b[0].float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(dqa.abs(), dqb.abs()))) - 7)
+    assert bool(((dqa - dqb).abs() <= ulp + 1e-4 * float(dqa.abs().max())).all())
+
+
+@pytest.mark.cuda
+def test_backward_smaller_call_after_larger_on_card(cuda_device):
+    """A call at the main shape, then a smaller one: the second is right
+    (its workspace is zeroed again, whatever the allocator hands back)."""
+    for shape, lk in (((2, 4096, 5, 64), None), ((1, 300, 2, 64), 200), ((1, 130, 3, 128), None)):
+        q, k, v, do = _card_inputs(cuda_device, shape, lk, 1.0, seed=5)
+        out, lse = fa.flash_attention_with_lse(q, k, v)
+        grads = fa.flash_attention_backward(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        _hold_backward(q, k, v, do, 1.0 / shape[-1] ** 0.5, grads)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of voxe_tpu_torch (nor
-chip_smoke.py) imports jax, flax, optax, safetensors, voxe_tpu, matplotlib
+chip_smoke.py or flash_bwd_ablations.py) imports jax, flax, optax, safetensors, voxe_tpu, matplotlib
 or imageio (the card has none of the last three: the port reads safetensors
 itself and writes images and videos with Pillow), and its
 native segmentation backend is built from the port's own C++ sources into
@@ -40,6 +40,7 @@ def test_port_imports_no_jax_or_reference_package():
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import flash_bwd_ablations\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu', 'matplotlib', 'imageio'))\n"
         "from voxe_tpu_torch.seg import native\n"

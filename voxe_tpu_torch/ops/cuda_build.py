@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -34,6 +35,7 @@ class CudaLibrary:
         self.argtypes = list(argtypes)
         self._fn = None
         self._lock = threading.Lock()
+        self.report = None  # nvcc's output (ptxas' -v report) when this process built the library
 
     def build(self, verbose: bool = False) -> Path:
         """Compile the source (once per source content) and return the
@@ -51,8 +53,9 @@ class CudaLibrary:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.src.name} ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        self.report = proc.stdout + proc.stderr
         if verbose:
-            print(proc.stdout + proc.stderr)
+            print(self.report)
         os.replace(tmp, lib_path)
         return lib_path
 
@@ -69,3 +72,24 @@ class CudaLibrary:
         fn.argtypes = list(argtypes)
         fn.restype = restype
         return fn
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel entry (mangled): {"registers", "spill_stores", "spill_loads",
+    "stack"}} from ptxas' -v report (bytes for the last three)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
