@@ -101,6 +101,17 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
  14g. grid-refine: the legacy grid_refine loop on the CLI phases' 160^3
      grids with SD 1.4 (4 iterations with the attention re-learn, graph cuts
      at 1 and 4): ms per iteration, graph-cut seconds, launches, files;
+ 14p. parallel-nccl: the data-parallel paths through NCCL at world size 1
+     (the group from torchrun's variables through maybe_init_distributed,
+     the mesh passed to the builders, so the row split, the gather and the
+     gradient all-reduce run): the recon K-step (K = 10, 160^3, 768^2 base,
+     the fused compositing kernel) and the SDS edit K-step (K = 3, SD 2.0
+     widths, 384^2 base) each sharded against unsharded from the same state,
+     in turns: ms per step of both, each NCCL kernel's device ms (torch.profiler),
+     the grid gap (recon bitwise expected; the edit at its card tolerance),
+     flash and compositing launches; then the recon CLI with --multihost
+     True --num_devices 1 (one stage of 3 iterations), its files and its
+     model_final.pth read back;
  15. shape-sweep: the compositing kernel against its plain version at every
      [N, S] it launched in this run that phase 3 did not check;
  16. the `kernels` JSON line, the card line, and the final JSON line.
@@ -1853,6 +1864,177 @@ def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> int:
     torch.cuda.empty_cache()
     return composite
 
+PAR_RECON_K, PAR_SDS_K, PAR_ROUNDS = 10, 3, 2
+PAR_RECON_TOL = 1e-6  # of max|grid|: at world size 1 the sharded step is the unsharded one (bitwise expected)
+PAR_SDS_TOL = 1e-3  # of max|grid|: the edit step's card tolerance (small-check)
+
+
+def nccl_device_ms(fn, steps: int) -> dict:
+    """Device ms a step of each NCCL kernel in one call of fn (`steps`
+    steps), from torch.profiler: {kernel: [ms a step, launches a step]}
+    (None when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not any(e.self_device_time_total > 0 for e in events):
+        return None
+    return {e.key[:60]: [e.self_device_time_total / 1e3 / steps, e.count / steps]
+            for e in events if "nccl" in e.key.lower()}
+
+
+def sharded_pair(build, call, rounds: int, k: int) -> dict:
+    """The sharded and the unsharded call of a K-step builder from equal
+    states, in turns (sharded, unsharded) for `rounds` rounds: ms per step
+    of each (median over the rounds), and the grids after the last."""
+    states = {name: build(name == "sharded") for name in ("sharded", "unsharded")}
+    ms = {name: [] for name in states}
+    for _ in range(rounds):
+        for name, state in states.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = call(state)
+            float(m["total_loss"])  # the summary's read
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / k)
+    return dict(states=states, ms={name: float(np.median(v)) for name, v in ms.items()},
+                ms_rounds=ms)
+
+
+def grid_gap(states) -> tuple:
+    """(max|sharded - unsharded| over both grid tensors, max|unsharded|, bitwise)."""
+    a, b = states["sharded"]["grid"], states["unsharded"]["grid"]
+    gap = max(float((getattr(a, n) - getattr(b, n)).abs().max()) for n in ("densities", "features"))
+    scale = max(float(getattr(b, n).abs().max()) for n in ("densities", "features"))
+    same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in ("densities", "features"))
+    return gap, scale, same
+
+
+def phase_parallel_nccl(dev, workdir: Path) -> tuple:
+    """The data-parallel paths at world size 1 on NCCL (one card: NCCL
+    refuses two ranks on one device): the group from torchrun's variables
+    through maybe_init_distributed, the mesh passed to the step builders, so
+    the row split, the gather and the gradient all-reduce run. The recon
+    K-step at full width (160^3, 768^2 base, the fused compositing kernel)
+    and the SDS edit K-step (SD 2.0 widths, 160^3, 384^2 base) each against
+    the same call without a mesh from the same state; then the recon CLI
+    with --multihost True. Returns its (flash, compositing) launches."""
+    import torch.distributed as dist
+
+    from voxe_tpu_torch.parallel.distributed import free_port, maybe_init_distributed
+    from voxe_tpu_torch.parallel.mesh import make_mesh
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    os.environ.update(env)
+    try:
+        if not maybe_init_distributed(True, device="cuda", timeout_s=120.0) or dist.get_backend() != "nccl":
+            raise AssertionError("parallel-nccl: no NCCL process group")
+        mesh = make_mesh(1)
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)  # creates the NCCL communicator outside the timed calls
+        if float(warm) != 1.0:
+            raise AssertionError(f"parallel-nccl: all-reduce at world size 1 gave {float(warm)}")
+
+        scene = workdir / "scene"
+        train = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True,
+                                   device=dev)
+        images, poses = train.device_arrays()
+        base_hw = (RECON_BASE, RECON_BASE)
+        targets, masks = train_recon.warp_dataset_to_base(images, poses, train.camera_intrinsics,
+                                                          make_recon_grid(GRID_RES, dev), base_hw)
+        rcfg = RECON_RCFG.replace(camera_bounds=train.camera_bounds)
+        idxs = np.random.default_rng(11).integers(0, len(train), PAR_RECON_K)
+
+        def recon_state(sharded):
+            grid = make_recon_grid(GRID_RES, dev)
+            opt = train_sds.make_adam(grid, 0.03)
+            multi = train_recon.make_recon_train_multi_step_shearwarp(
+                rcfg, opt, base_hw, PAR_RECON_K, True, lr_schedule=train_recon.exponential_decay_staircase(
+                    0.03, 400, 0.1), mesh=mesh if sharded else None)
+            return dict(grid=grid, multi=multi)
+
+        def recon_call(state):
+            return state["multi"](state["grid"], targets, masks, poses, idxs)
+
+        sd = StableDiffusion(SD_VERSION, init_mode="random", seed=0, device=dev)
+        text_by_dir = torch.stack([sd.get_text_embeds(f"a dog made of yarn, {d} view") for d in DIRECTION_PROMPTS])
+        t_bounds = torch.tensor([[500, 500]] * PAR_SDS_K)
+
+        def sds_state(sharded):
+            grid = make_grid(GRID_RES, dev)
+            opt = train_sds.make_adam(grid, 0.03)
+            multi = train_sds.make_sds_train_multi_step(
+                sd, RCFG, opt, CameraIntrinsics(BASE, BASE, float(BASE)), PAR_SDS_K,
+                density_correlation_weight=200.0, guidance_scale=100.0, use_shear_warp=True,
+                sw_base_hw=(BASE, BASE), mesh=mesh if sharded else None)
+            return dict(grid=grid, ref=(grid.densities.detach().clone(), grid.features.detach().clone()),
+                        multi=multi, gen=torch.Generator(device=dev).manual_seed(1))
+
+        def sds_call(state):
+            return state["multi"](state["grid"], text_by_dir, *state["ref"], t_bounds, state["gen"])
+
+        torch.cuda.synchronize()
+        reset_counts()  # counts from here to the end of this path's run
+        calls0 = dict(mesh.calls)
+        recon = sharded_pair(recon_state, recon_call, PAR_ROUNDS, PAR_RECON_K)
+        recon_calls = {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()}
+        recon_launches = comp.LAUNCHES
+        gap, scale, same = grid_gap(recon["states"])
+        nccl = nccl_device_ms(lambda: recon_call(recon["states"]["sharded"]), PAR_RECON_K)
+        log("parallel-nccl-recon", world=1, backend=dist.get_backend(), grid=GRID_RES, base=RECON_BASE,
+            k=PAR_RECON_K, rounds=PAR_ROUNDS, ms_per_step_sharded=recon["ms"]["sharded"],
+            ms_per_step_unsharded=recon["ms"]["unsharded"], ms_rounds=recon["ms_rounds"],
+            nccl_kernels_ms_and_launches_per_step=json.dumps(nccl).replace(" ", ""), collectives=recon_calls,
+            composite_launches=recon_launches, max_grid_diff=gap, max_grid=scale, bitwise=same,
+            tol_rel=PAR_RECON_TOL, card=card_line().replace(" ", "_"))
+        want = 2 * PAR_RECON_K * PAR_ROUNDS * 2
+        if not (gap <= PAR_RECON_TOL * scale and recon_launches == want):
+            raise AssertionError(f"parallel-nccl recon: grid gap {gap} of {scale}, {recon_launches} launches")
+        if recon_calls.get("all_reduce_grads") != PAR_RECON_K * PAR_ROUNDS:
+            raise AssertionError(f"parallel-nccl recon: collectives {recon_calls}")
+
+        flash0 = fa.LAUNCHES
+        sds = sharded_pair(sds_state, sds_call, PAR_ROUNDS, PAR_SDS_K)
+        sds_flash = fa.LAUNCHES - flash0
+        gap, scale, same = grid_gap(sds["states"])
+        sds_nccl = nccl_device_ms(lambda: sds_call(sds["states"]["sharded"]), PAR_SDS_K)
+        log("parallel-nccl-sds", world=1, sd=SD_VERSION, grid=GRID_RES, base=BASE, k=PAR_SDS_K, rounds=PAR_ROUNDS,
+            ms_per_step_sharded=sds["ms"]["sharded"], ms_per_step_unsharded=sds["ms"]["unsharded"],
+            ms_rounds=sds["ms_rounds"], nccl_kernels_ms_and_launches_per_step=json.dumps(sds_nccl).replace(" ", ""),
+            flash_launches=sds_flash,
+            max_grid_diff=gap, max_grid=scale, bitwise=same, tol_rel=PAR_SDS_TOL,
+            card=card_line().replace(" ", "_"))
+        want = FLASH_PER_UNET_PASS * PAR_SDS_K * PAR_ROUNDS * 2
+        if not (gap <= PAR_SDS_TOL * scale and sds_flash == want):
+            raise AssertionError(f"parallel-nccl sds: grid gap {gap} of {scale}, {sds_flash} flash launches")
+        flash, composite = fa.LAUNCHES, comp.LAUNCHES
+        del sd, sds, recon
+        torch.cuda.empty_cache()
+
+        out = workdir / "cli_multihost"
+        t0 = time.perf_counter()
+        logged(recon_cli.main, ["-d", str(scene), "-o", str(out), "--num_stages", "1", "--num_iterations_per_stage",
+                                "3", "--use_fused_kernel", "True", "--device", "cuda", "--multihost", "True",
+                                "--num_devices", "1"])
+        cli_s = time.perf_counter() - t0
+        model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
+        files = sorted(p.name for p in (out / "saved_models").iterdir())
+        log("parallel-nccl-cli", multihost=True, num_devices=1, seconds=cli_s, saved_models=files,
+            camera_rays_png=(out / "camera_rays.png").exists(), final_grid=list(model.grid.grid_dims),
+            composite_launches=comp.LAUNCHES - composite)
+        if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all() or not (
+                out / "camera_rays.png").exists():
+            raise AssertionError(f"parallel-nccl: the recon CLI with --multihost wrote {files}")
+        return fa.LAUNCHES, comp.LAUNCHES
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
 
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
@@ -1951,6 +2133,8 @@ def main() -> int:
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         by_path["grid-refine"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
             "grid-refine", phase_grid_refine, dev, work, snapshot14)}
+        flash, composite = timed("parallel-nccl", phase_parallel_nccl, dev, work)
+        by_path["parallel-nccl"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
     comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
     for row in (flash_row, bwd_row, comp_row):  # timed() held flash_attn_bwd at 0 on every other path
         row["launches_by_path"] = {path: counts.get(row["name"], 0) for path, counts in by_path.items()}

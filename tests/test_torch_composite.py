@@ -31,6 +31,10 @@ from voxe_tpu_torch.render.interface import render_sh_voxel_grid as t_render
 from voxe_tpu_torch.render.rays import Rays as TRays
 from voxe_tpu_torch.utils.camera import CameraBounds as TBounds
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _needs_jax(request):

@@ -41,6 +41,7 @@ from voxe_tpu_torch.grid import voxels as tvox
 from voxe_tpu_torch.models import volumetric as tvol
 from voxe_tpu_torch.models.sd.config import tiny_test_config as t_tiny
 from voxe_tpu_torch.models.sd.sds import StableDiffusion as TSD
+from voxe_tpu_torch.parallel import distributed as tdist
 from voxe_tpu_torch.render import shearwarp as tsw
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig as TRenderConfig
 from voxe_tpu_torch.render.rays import cast_rays as t_cast_rays
@@ -48,6 +49,10 @@ from voxe_tpu_torch.render.rays import flatten_rays as t_flatten_rays
 from voxe_tpu_torch.train import sds as tsds
 from voxe_tpu_torch.utils import camera as tcam
 from voxe_tpu_torch.viz import static as tstatic
+
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -391,12 +396,14 @@ def test_cli_flags_match_click_command():
     assert port_opts == click_opts
 
 
-def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
+def test_cli_tiny_end_to_end(tmp_path, tiny_scene, monkeypatch):
     """The recon CLI then the edit CLI on the CPU with the tiny SD: feedback
     PNGs and checkpoints written, a model_final.pth that both packages read;
     refinement without its token indices or SD 1.4 weights is refused
     before the edit; with `--steps_per_call 2` the refinement runs two
-    iterations a call; the multi-device flags raise."""
+    iterations a call; `--num_devices 2` hands the command to two spawned
+    ranks (recorded here, not started: tests/test_torch_parallel.py runs
+    them)."""
     trecon_cli.main([
         "-d", str(tiny_scene), "-o", str(tmp_path / "recon"), "--grid_dims", "16", "16", "16", "--num_stages", "1",
         "--num_iterations_per_stage", "2", "--fast_debug_mode", "True", "--use_fused_kernel", "True", "--device", "cpu",
@@ -434,5 +441,8 @@ def test_cli_tiny_end_to_end(tmp_path, tiny_scene):
     saved = tmp_path / "edit_fused" / "saved_models"
     assert sorted(p.name for p in saved.glob("model_edit_iter_*")) == ["model_edit_iter_2.pth", "model_edit_iter_3.pth"]
     assert (saved / "model_final_refined.pth").exists()
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        tcli.main(args + ["--num_devices", "2"])
+    spawned = []
+    monkeypatch.setattr(tdist, "launch_local", lambda fn, fn_args, n: spawned.append((fn, fn_args, n)))
+    multi = [a if a != str(tmp_path / "edit") else str(tmp_path / "edit_2") for a in args] + ["--num_devices", "2"]
+    assert tcli.main(multi) is None
+    assert spawned == [(tcli.main, (multi,), 2)] and not (tmp_path / "edit_2").exists()

@@ -25,6 +25,10 @@ from voxe_tpu_torch.render import interface as tif
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.utils import camera as tcam
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 

@@ -30,6 +30,10 @@ from voxe_tpu_torch.models.sd.weights import from_flax_params
 from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

@@ -29,6 +29,10 @@ from voxe_tpu_torch.models.volumetric import VolumetricModel as TModel
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig as TRenderConfig
 from voxe_tpu_torch.train import grid_refine as tgr
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 
 RES = 12

@@ -25,6 +25,10 @@ from voxe_tpu_torch.models.sd import unet as tunet
 from voxe_tpu_torch.models.sd.config import tiny_test_config as t_tiny
 from voxe_tpu_torch.models.sd.weights import from_flax_params
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 REFINE_PAIRS = [
     ("a dog", "a fluffy dog"),  # insertion
     ("a cat sitting on a red mat", "a black cat on a mat"),  # insertion and deletion

@@ -19,6 +19,10 @@ import torch
 import voxe_tpu_torch
 from voxe_tpu_torch.ops import flash_attention as fa
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -34,7 +38,7 @@ def test_port_imports_no_jax_or_reference_package():
     for name in ("cli.render_sh_based_voxel_grid", "cli.render_sh_based_voxel_grid_attn", "viz.animations",
                  "viz.video", "models.lpips", "cli.validate_sd_weights", "cli.convert_from_nerf_blender_dataset",
                  "models.sd.controllers", "models.sd.seq_aligner", "data.blender", "grid.feature_voxels",
-                 "train.grid_refine"):
+                 "train.grid_refine", "parallel.mesh", "parallel.distributed"):
         assert f"voxe_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"

@@ -43,6 +43,10 @@ from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_ima
 from voxe_tpu_torch.utils import camera as tcam
 from voxe_tpu_torch.utils import metrics as tmetrics
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 # eyes near each of the six axis directions (z up; pitch 90 is level):
 # every (marching axis, direction) pair
 SIX_POSES = [(10.0, 85.0), (100.0, 85.0), (190.0, 85.0), (280.0, 85.0), (10.0, 5.0), (10.0, 175.0)]

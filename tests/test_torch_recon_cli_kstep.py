@@ -16,9 +16,14 @@ from voxe_tpu_torch.data.dataset import PosedImagesDataset as TDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models import volumetric as tvol
+from voxe_tpu_torch.parallel import distributed as tdist
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
 from voxe_tpu_torch.train import checkpointing as tckpt
 from voxe_tpu_torch.train.recon import train_sh_vox_grid_vol_mod_with_posed_images
+
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -92,11 +97,13 @@ def test_resume_from_the_jax_training_state(runs, scene):
     assert moved > 0.0
 
 
-def test_resume_across_the_stage_ladder_and_coarse_stages_on_cpu(scene, tmp_path, caplog):
+def test_resume_across_the_stage_ladder_and_coarse_stages_on_cpu(scene, tmp_path, caplog, monkeypatch):
     """The port's own state at stage 2 of 2: a resumed run fast-forwards
     stage 1 (the grid scaled up the ladder to the state's size) and
     continues stage 2 after the saved iteration; `--coarse_stages_on_cpu`
-    runs and logs the CPU stages."""
+    runs and logs the CPU stages; `--num_devices 2` hands the command to two
+    spawned ranks (recorded here, not started: tests/test_torch_parallel.py
+    runs them)."""
     first, resumed = tmp_path / "first", tmp_path / "resumed"
     tcli.main(_args(scene, 4, stages=2) + ["-o", str(first), "--device", "cpu"])
     state = first / "saved_models" / "training_state_latest.pth"
@@ -112,8 +119,22 @@ def test_resume_across_the_stage_ladder_and_coarse_stages_on_cpu(scene, tmp_path
     assert [r.stage_device for r in caplog.records if hasattr(r, "stage_device")] == ["cpu", "cpu"]
     assert any("stage 1 runs on the CPU" in r.getMessage() for r in caplog.records)
     assert (tmp_path / "coarse" / "saved_models" / "model_final.pth").exists()
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        tcli.main(_args(scene, 2) + ["-o", str(tmp_path / "x"), "--device", "cpu", "--num_devices", "2"])
+    spawned = []
+    monkeypatch.setattr(tdist, "launch_local", lambda fn, fn_args, n: spawned.append((fn, fn_args, n)))
+    multi = _args(scene, 2) + ["-o", str(tmp_path / "x"), "--device", "cpu", "--num_devices", "2"]
+    tcli.main(multi)
+    assert spawned == [(tcli.main, (multi,), 2)] and not (tmp_path / "x").exists()
+
+
+@pytest.mark.cuda
+def test_num_devices_beyond_the_card_count_fails_at_once(scene, tmp_path):
+    """On a one-card host, `--device cuda --num_devices 2` fails before it
+    spawns anything, with both counts in the message."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() != 1:
+        pytest.skip("needs a host with exactly one CUDA card")
+    with pytest.raises(ValueError, match=r"--num_devices 2 .* has 1 CUDA device"):
+        tcli.main(_args(scene, 2) + ["-o", str(tmp_path / "x"), "--device", "cuda", "--num_devices", "2"])
+    assert not (tmp_path / "x").exists()
 
 
 def test_streaming_stage_through_the_trainer(scene, tmp_path, caplog):

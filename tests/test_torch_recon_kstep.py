@@ -31,6 +31,10 @@ from voxe_tpu_torch.train import checkpointing as tckpt
 from voxe_tpu_torch.train import recon as trecon
 from voxe_tpu_torch.utils import camera as tcam
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 LR, DECAY_STEPS, GAMMA = 0.03, 2, 0.1  # the lr changes inside a 3-step call
 
 

@@ -26,6 +26,10 @@ from voxe_tpu_torch.models import volumetric as tvol
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images as t_tester
 from voxe_tpu_torch.viz.static import camera_ray_geometry
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):

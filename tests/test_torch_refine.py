@@ -35,6 +35,10 @@ from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig as TRenderConf
 from voxe_tpu_torch.train import refine as trefine
 from voxe_tpu_torch.utils import camera as tcam
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

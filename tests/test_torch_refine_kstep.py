@@ -27,6 +27,10 @@ from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig as TRenderConf
 from voxe_tpu_torch.train import refine as trefine
 from voxe_tpu_torch.utils import camera as tcam
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 PROMPT = "a dog wearing a party hat"
 K, RADIUS, BASE, EDIT_IDX = 2, 4.0311, (24, 24), [4, 5]
 

@@ -34,6 +34,7 @@ from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
 from voxe_tpu_torch.grid import voxels as tvox
 from voxe_tpu_torch.models import volumetric as tvol
 from voxe_tpu_torch.models.sd.weights import voxel_grid_from_numpy
+from voxe_tpu_torch.parallel import distributed as tdist
 from voxe_tpu_torch.render import interface as tinterface
 from voxe_tpu_torch.render import shearwarp as tsw
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig as TRenderConfig
@@ -44,6 +45,10 @@ from voxe_tpu_torch.seg import native as tnative
 from voxe_tpu_torch.utils import camera as tcam
 from voxe_tpu_torch.viz import _jet
 from voxe_tpu_torch.viz import refinement as tviz
+
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -349,11 +354,13 @@ def tiny_run(tmp_path_factory):
     return root, scene, edit_args
 
 
-def test_refine_and_segment_clis_tiny_end_to_end(tiny_run):
+def test_refine_and_segment_clis_tiny_end_to_end(tiny_run, monkeypatch):
     """The refine CLI (3 shear-warp iterations, feedback and snapshots every
     2) and the segment CLI on its attention grids: checkpoints that both
-    packages load, the keep grid, diagnostics PNGs; `--num_devices > 1`
-    raises; two iterations a call; a short dataset-pose run."""
+    packages load, the keep grid, diagnostics PNGs; `--num_devices 2` hands
+    the command to two spawned ranks (recorded here, not started:
+    tests/test_torch_parallel.py runs them); two iterations a call; a short
+    dataset-pose run."""
     root, scene, _ = tiny_run
     recon, edit = root / "recon" / "saved_models" / "model_final.pth", root / "edit" / "saved_models" / "model_final.pth"
     args = ["-d", str(scene), "-i", str(edit), "-r", str(recon), "-p", "a dog wearing a hat", "-eidx", "4 5",
@@ -385,8 +392,12 @@ def test_refine_and_segment_clis_tiny_end_to_end(tiny_run):
     assert torch.equal(seg.grid.attn, refined.grid.attn) and torch.equal(seg.grid.densities, refined.grid.densities)
     assert {"attn_final_attn_iter_0.png", "sds_refined_iter_0.png", "scatter3d_locations_0.png"} <= {
         p.name for p in (root / "seg" / "training_logs" / "rendered_output").iterdir()}
-    with pytest.raises(NotImplementedError, match="num_devices"):
-        trefine_cli.main(args + ["-o", str(root / "x"), "--num_devices", "2"])
+    spawned = []
+    monkeypatch.setattr(tdist, "launch_local", lambda fn, fn_args, n: spawned.append((fn, fn_args, n)))
+    trefine_cli.main(args + ["-o", str(root / "x"), "--num_devices", "2"])
+    assert spawned == [(trefine_cli.main, (args + ["-o", str(root / "x"), "--num_devices", "2"],), 2)]
+    assert not (root / "x").exists()
+    monkeypatch.undo()
     # two iterations a call: 3 iterations are calls ending at 2 and 3, and the
     # JAX K-step cadence snapshots both (step % 2 < 2), never iteration 1
     trefine_cli.main(args + ["-o", str(root / "refine_k2"), "--num_iterations_per_stage", "3", "--steps_per_call", "2",

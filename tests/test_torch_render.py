@@ -24,6 +24,10 @@ from voxe_tpu_torch.utils.camera import CameraBounds as TBounds
 from voxe_tpu_torch.utils.camera import CameraPose as TPose
 from voxe_tpu_torch.utils.camera import pose_spherical
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 RES = 16
 BASE = (24, 24)
 # eyes near each of the six axis directions (z is up; pitch 90 is level) (slightly off-axis so the

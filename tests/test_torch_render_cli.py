@@ -41,6 +41,10 @@ from voxe_tpu_torch.utils import camera as tcam
 from voxe_tpu_torch.viz import animations as tanim
 from voxe_tpu_torch.viz import video as tvideo
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 RES, SCREEN, SAMPLES, NUM_FRAMES = 16, 24, 32, 4  # NUM_FRAMES 4: 3 poses on the turntable
 INFO = {"camera_intrinsics": [SCREEN, SCREEN, float(SCREEN)], "hemispherical_radius": 4.0311,
         "camera_bounds": [2.0, 6.0]}

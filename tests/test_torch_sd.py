@@ -21,6 +21,10 @@ from voxe_tpu_torch.models.sd.tokenizer import get_num_tokens as t_num_tokens
 from voxe_tpu_torch.models.sd.unet import timestep_embedding as t_temb
 from voxe_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 

@@ -17,6 +17,10 @@ from voxe_tpu_torch.cli import validate_sd_weights
 from voxe_tpu_torch.models.sd.sds import StableDiffusion as TSD
 from voxe_tpu_torch.models.sd.sds import scoreDistillationLoss as TSDS
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 LATENT = (1, 32, 32, 4)  # the tiny SD: 64^2 images, VAE factor 2
 
 

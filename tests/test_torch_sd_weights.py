@@ -31,6 +31,10 @@ from voxe_tpu_torch.models.sd.sds import StableDiffusion as TSD
 from voxe_tpu_torch.models.sd.sds import scoreDistillationLoss as TSDL
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer as TTok
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 

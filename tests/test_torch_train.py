@@ -27,6 +27,10 @@ from voxe_tpu_torch.train import sds as tsds
 from voxe_tpu_torch.utils import camera as tcam
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid as t_scale
 
+# One intra-op thread: the suite runs in parallel worker processes, where
+# torch's per-core thread pools oversubscribe the cores and spin.
+torch.set_num_threads(1)
+
 RES, BASE = 16, (24, 24)
 
 

@@ -13,8 +13,11 @@ unet/, tokenizer/); without it the SD weights are seeded random.
 edit tokens; `--sd_refine_weights_dir` is the 1.4 snapshot, required when
 `--sd_weights_dir` is given), writing `model_final_refined.pth`;
 `--post_process_scc True` keeps the largest connected component of the
-final model's density. `--hf_auth_token`, `--num_workers` and the wandb
-flags are accepted and unused, as in the JAX CLI.
+final model's density. `--num_devices N` shards the edit and the
+refinement over N devices, one process each (spawned by the command, or the
+group of torchrun or `--multihost True`), as the recon CLI does.
+`--hf_auth_token`, `--num_workers` and the wandb flags are accepted and
+unused, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ from voxe_tpu_torch.cli.train_sh_based_voxel_grid_with_posed_images import (
     load_train_dataset,
 )
 from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_model
+from voxe_tpu_torch.parallel.distributed import barrier, init_cli_group, is_local_writer, spawn_cli_ranks
+from voxe_tpu_torch.parallel.mesh import maybe_mesh
 from voxe_tpu_torch.train.sds import train_sh_vox_grid_vol_mod_with_posed_images_and_sds
 from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.misc import log_config_to_disk
@@ -120,10 +125,11 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[VolumetricModel]:
     """Run the edit, then the refinement and the SCC post-process when asked;
     returns the edited model (also saved as
-    `<output_path>/saved_models/model_final.pth`)."""
+    `<output_path>/saved_models/model_final.pth`), or None in the process
+    that spawned the ranks of a multi-device run."""
     parser = build_parser()
     config = parser.parse_args(argv)
     if config.do_refinement:
@@ -136,13 +142,14 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
                 "--do_refinement with real SD weights needs --sd_refine_weights_dir pointing at a "
                 "converted SD **1.4** snapshot (refinement uses 1.4)"
             )
-    if config.multihost or config.num_devices > 1:
-        raise NotImplementedError(
-            "--multihost / --num_devices > 1: multi-device edits (the data-parallel mesh) are not ported yet"
-        )
     check_device(config.device)
+    if spawn_cli_ranks(main, argv, config):
+        return None
+    init_cli_group(config)
+    writer = is_local_writer()
     output_path = Path(config.output_path)
-    log_config_to_disk(vars(config), output_path)
+    if writer:
+        log_config_to_disk(vars(config), output_path)
     train_dataset = load_train_dataset(config)
     intrinsics = train_dataset.camera_intrinsics
 
@@ -193,11 +200,13 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
         sd_version=config.sd_version,
         sd_weights_dir=Path(config.sd_weights_dir) if config.sd_weights_dir else None,
         fast_debug_mode=config.fast_debug_mode,
+        mesh=maybe_mesh(config.num_devices),
         steps_per_call=config.steps_per_call,
         use_shear_warp=config.use_shear_warp,
         shear_warp_base_res=config.shear_warp_base_res,
     )
     saved = output_path / "saved_models"
+    barrier()  # every rank reads what the writer saved
     if config.do_refinement:
         from voxe_tpu_torch.train.refine import refine_edited_relu_field
 
@@ -237,11 +246,12 @@ def main(argv: Optional[Sequence[str]] = None) -> VolumetricModel:
             sd_weights_dir=Path(config.sd_refine_weights_dir) if config.sd_refine_weights_dir else None,
             # the reference refines on SD 1.4, unless the tiny plumbing config was asked for
             sd_version="tiny" if config.sd_version == "tiny" else "1.4",
+            num_devices=config.num_devices,
             use_shear_warp=config.use_shear_warp,
             shear_warp_base_res=config.shear_warp_base_res,
             steps_per_call=config.steps_per_call,
         )
-    if config.post_process_scc:
+    if config.post_process_scc and writer:
         from voxe_tpu_torch.seg.components import scc_post_process
 
         target = saved / ("model_final_refined.pth" if config.do_refinement else "model_final.pth")

@@ -11,9 +11,11 @@ argparse, plus `--device`).
 
 `--sd_weights_dir` points at a local HF snapshot of SD 1.4; without it the
 SD weights are seeded random. `--steps_per_call K` runs K shear-warp
-iterations a call in random-pose mode. `--multihost` and `--num_devices > 1`
-raise (not ported). `--hf_auth_token`, `--num_workers`
-and the wandb flags are accepted and unused, as in the JAX CLI.
+iterations a call in random-pose mode. `--num_devices N` shards the
+iterations over N devices, one process each (spawned by the command, or the
+group of torchrun or `--multihost True`), as the recon CLI does.
+`--hf_auth_token`, `--num_workers` and the wandb flags are accepted and
+unused, as in the JAX CLI.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from voxe_tpu_torch.cli.train_sh_based_voxel_grid_with_posed_images import (
     load_train_dataset,
 )
 from voxe_tpu_torch.models.volumetric import load_volumetric_model
+from voxe_tpu_torch.parallel.distributed import init_cli_group, is_local_writer, spawn_cli_ranks
 from voxe_tpu_torch.train.refine import refine_edited_relu_field
 from voxe_tpu_torch.utils.misc import log_config_to_disk
 
@@ -101,11 +104,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     config = build_parser().parse_args(argv)
-    if config.multihost or config.num_devices > 1:
-        raise NotImplementedError("--multihost / --num_devices > 1: multi-device refinement is not ported yet")
     check_device(config.device)
+    if spawn_cli_ranks(main, argv, config):
+        return
+    init_cli_group(config)
     output_path = Path(config.output_path)
-    log_config_to_disk(vars(config), output_path)
+    if is_local_writer():
+        log_config_to_disk(vars(config), output_path)
     train_dataset = load_train_dataset(config)
     intrinsics = train_dataset.camera_intrinsics
 
@@ -145,6 +150,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         downsample_refine_grid=config.downsample_refine_grid,
         sd_version=config.sd_version,
         sd_weights_dir=Path(config.sd_weights_dir) if config.sd_weights_dir else None,
+        num_devices=config.num_devices,
         use_shear_warp=config.use_shear_warp,
         shear_warp_base_res=config.shear_warp_base_res,
         steps_per_call=config.steps_per_call,

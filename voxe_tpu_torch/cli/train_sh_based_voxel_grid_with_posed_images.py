@@ -8,8 +8,10 @@ flag names and defaults, parsed with argparse, plus `--device`).
 `--steps_per_call K` runs K steps a call, `--resume` continues from a
 `training_state_latest.pth` of either package, `--coarse_stages_on_cpu True`
 trains every stage but the last on the CPU, and a scene that decodes to more
-than 4 GiB streams its pixels from a memmap. `--multihost` and
-`--num_devices > 1` raise (not ported).
+than 4 GiB streams its pixels from a memmap. `--num_devices N` batches the
+rays data-parallel over N devices, one process each: the command spawns N
+local ranks itself, or, under torchrun or with `--multihost True`, joins the
+launched group (whose size must be N). Only local rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelGridLocation, VoxelSize
 from voxe_tpu_torch.models.volumetric import VolumetricModel
+from voxe_tpu_torch.parallel.distributed import init_cli_group, is_local_writer, spawn_cli_ranks
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
 from voxe_tpu_torch.train.recon import train_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.constants import NUM_COLOUR_CHANNELS
@@ -119,11 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     config = build_parser().parse_args(argv)
-    if config.multihost:
-        raise NotImplementedError("--multihost is not ported yet")
     check_device(config.device)
+    if spawn_cli_ranks(main, argv, config):
+        return
+    init_cli_group(config)
     data_path, output_path = Path(config.data_path), Path(config.output_path)
-    log_config_to_disk(vars(config), output_path)
+    if is_local_writer():
+        log_config_to_disk(vars(config), output_path)
 
     def dataset(images_dir, params_json):
         return PosedImagesDataset(

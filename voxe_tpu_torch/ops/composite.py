@@ -130,7 +130,7 @@ def composite_weights(
     return _CompositeWeights.apply(raw_density, depths, dir_norms)
 
 
-def fused_shade_composite(grid, sampled, rays, config, generator=None, extra_debug=False):
+def fused_shade_composite(grid, sampled, rays, config, generator=None, extra_debug=False, density_noise=None):
     """Render tail of `render_sh_voxel_grid` when `config.use_fused_kernel`:
     grid query + SH shading, then the compositing kernel. Produces the same
     RenderOut as the plain path. Debug extras and density noise take the
@@ -156,6 +156,7 @@ def fused_shade_composite(grid, sampled, rays, config, generator=None, extra_deb
             background_value=1.0,
             extra_debug_info=extra_debug,
             generator=generator,
+            density_noise=density_noise,
         )
     raw_radiance = processed[..., :-1]
     raw_density = processed[..., -1].contiguous()

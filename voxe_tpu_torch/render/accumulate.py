@@ -75,6 +75,7 @@ def accumulate_radiance_density_on_rays(
     generator: Optional[torch.Generator] = None,
     final_delta: str = "inf",
     use_fused_kernel: bool = False,
+    density_noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Composite per-sample (radiance, density) into per-ray colour and depth.
 
@@ -84,7 +85,8 @@ def accumulate_radiance_density_on_rays(
     `ops.composite.composite_weights` (the CUDA kernel on a card) after the
     same lane padding as the JAX package, so both give the same numbers. A
     tuple input keeps the radiance in its own (e.g. bf16) dtype while the
-    weights math stays f32."""
+    weights math stays f32. The density noise is `density_noise` ([N, S]
+    standard normals) when given, else a draw from `generator`."""
     if isinstance(processed_points, tuple):
         raw_radiance, raw_density = processed_points
     else:
@@ -92,9 +94,11 @@ def accumulate_radiance_density_on_rays(
     dir_norms = torch.linalg.norm(rays.directions.reshape(-1, 3), dim=-1)
 
     if stochastic_density_noise_std > 0.0:
-        if generator is None:
-            raise ValueError("density noise needs a torch.Generator")
-        noise = torch.randn(raw_density.shape, generator=generator, device=generator.device)
+        noise = density_noise
+        if noise is None:
+            if generator is None:
+                raise ValueError("density noise needs a torch.Generator or density_noise")
+            noise = torch.randn(raw_density.shape, generator=generator, device=generator.device)
         raw_density = raw_density + noise.to(raw_density.device) * stochastic_density_noise_std
 
     deltas = alpha = None

@@ -78,16 +78,17 @@ def render_sh_voxel_grid(
     generator: Optional[torch.Generator] = None,
     extra_debug_info: bool = False,
     t_rand: Optional[torch.Tensor] = None,
+    density_noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Render flat rays against an SH voxel grid. With no generator (and no
-    `t_rand`) there is no jitter and no density noise: the deterministic
-    eval mode."""
+    `t_rand` / `density_noise`) there is no jitter and no density noise: the
+    deterministic eval mode."""
     rays = flatten_rays(rays)
     sampled = _sample(voxel_grid, rays, config, generator, t_rand)
     if config.use_fused_kernel:
         from voxe_tpu_torch.ops.composite import fused_shade_composite
 
-        return fused_shade_composite(voxel_grid, sampled, rays, config, generator, extra_debug_info)
+        return fused_shade_composite(voxel_grid, sampled, rays, config, generator, extra_debug_info, density_noise)
     processed = process_points_with_sh_voxel_grid(
         sampled, rays, voxel_grid, render_diffuse=config.render_diffuse
     )
@@ -100,7 +101,25 @@ def render_sh_voxel_grid(
         background_value=1.0,
         extra_debug_info=extra_debug_info,
         generator=generator,
+        density_noise=density_noise,
     )
+
+
+def draw_ray_randomness(config: SHVoxGridRenderConfig, num_rays: int, generator: Optional[torch.Generator],
+                        density_noise: bool = True):
+    """(t_rand, density_noise), each [R, S] or None: what an exact render of
+    `num_rays` rays draws from `generator`, in its order (the noise only
+    with `density_noise`, for a render that adds it). A sharded step draws
+    them for the whole batch and passes its rays' rows, so every rank
+    draws what the unsharded step draws."""
+    if generator is None:
+        return None, None
+    shape = (num_rays, config.num_samples_per_ray)
+    t_rand = torch.rand(shape, generator=generator, device=generator.device) if (
+        config.perturb_sampled_points) else None
+    noise = torch.randn(shape, generator=generator, device=generator.device) if (
+        density_noise and config.stochastic_density_noise_std > 0.0) else None
+    return t_rand, noise
 
 
 def render_feature_voxel_grid(
@@ -140,10 +159,12 @@ def render_sh_voxel_grid_attn(
     use_orig_densities: bool = False,
     extra_debug_info: bool = False,
     t_rand: Optional[torch.Tensor] = None,
+    density_noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Render the grid's attention channel, composited on black. As in the
     JAX package, `config.use_fused_kernel` applies to the colour render only:
-    this path always takes the plain compositor."""
+    this path always takes the plain compositor. `t_rand` / `density_noise`
+    replace the draws, as for `render_sh_voxel_grid`."""
     rays = flatten_rays(rays)
     sampled = _sample(voxel_grid, rays, config, generator, t_rand)
     processed = process_points_with_sh_voxel_grid_attn(
@@ -158,4 +179,5 @@ def render_sh_voxel_grid_attn(
         background_value=0.0,
         extra_debug_info=extra_debug_info,
         generator=generator,
+        density_noise=density_noise,
     )

@@ -34,6 +34,15 @@ refinement stage's edit and object grids render as one two-channel pass.
 output: the base composite, then a bilinear gather at each screen pixel's
 base coordinates (`sample_base_image`).
 
+With a `mesh` (voxe_tpu_torch.parallel) each rank renders only its share of
+the base rows u: `_render_canonical` takes its rows of the row resample
+matrices `Wa`, of the ray directions, masks and density noise before either
+composite, so both composites (and the compositing kernel) see rows_local x V
+rays and need no mesh of their own. The render returns the rank's rows; a
+caller that needs the whole image gathers them with `gather_axis`. The JAX
+package constrains the same rows to the mesh (`shard_axis`) and lets GSPMD
+split the work.
+
 Density noise (`config.stochastic_density_noise_std > 0`) adds std times one
 standard-normal draw per sample to the masked density, before the weights:
 an [N, S] draw in marching order, from a `torch.Generator` or passed in as
@@ -51,6 +60,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from voxe_tpu_torch.grid.voxels import ACTIVATIONS, VoxelGrid
+from voxe_tpu_torch.parallel.mesh import shard_axis
 from voxe_tpu_torch.render.accumulate import (
     RenderOut,
     accumulate_radiance_density_on_rays,
@@ -308,9 +318,11 @@ def _render_canonical(
     diffuse_only: bool = False,
     num_shade_channels: Optional[int] = None,
     noise: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Core shear-warp in canonical orientation. Returns (RenderOut over
-    [U*V] base pixels, dirs, lo, hi)."""
+    [U*V] base pixels, dirs [U*V, 3], lo, hi). With `mesh` the RenderOut
+    covers this rank's base rows only (`noise` is the whole [U*V, S] draw)."""
     S, A, B, _ = vol.shape
     U, V = base_hw
     f, dev = torch.float32, vol.device
@@ -360,6 +372,14 @@ def _render_canonical(
 
     in_a = (src_a >= -0.5) & (src_a <= A - 0.5)
     in_b = (src_b >= -0.5) & (src_b <= B - 0.5)
+    dirs_all = dirs
+    if mesh is not None:  # this rank's base rows u: DP over the rows, as JAX shards them
+        Wa, in_a = shard_axis(mesh, Wa, 1), shard_axis(mesh, in_a, 1)
+        U = Wa.shape[1]
+        dirs = shard_axis(mesh, dirs.reshape(-1, V, 3), 0).reshape(U * V, 3)
+        v_norm = shard_axis(mesh, v_norm.reshape(-1, V), 0).reshape(U * V)
+        if noise is not None:
+            noise = shard_axis(mesh, noise.reshape(-1, V, noise.shape[-1]), 0).reshape(U * V, -1)
     if stream_composite:
         inside_sn = (in_a[:, :, None] & in_b[:, None, :]).reshape(S, U * V)
         t_sn = tau_o[:, None] * v_norm[None, :]
@@ -376,7 +396,7 @@ def _render_canonical(
             background_value=background_value, diffuse_only=diffuse_only,
             num_shade_channels=num_shade_channels, noise=noise,
         )
-    return out, dirs, lo, hi
+    return out, dirs_all, lo, hi
 
 
 def render_shear_warp(
@@ -391,6 +411,7 @@ def render_shear_warp(
     use_orig_densities: bool = False,
     generator: Optional[torch.Generator] = None,
     density_noise: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[RenderOut, BaseImageGeometry]:
     """Render the base-plane image of `voxel_grid` seen from `pose`.
 
@@ -405,7 +426,9 @@ def render_shear_warp(
     the frozen densities with `use_orig_densities`; the refinement stage
     passes `background_value=0.0`. With `config.stochastic_density_noise_std
     > 0` the density noise is `density_noise` ([U*V, S] standard normals in
-    marching order) or a draw from `generator`."""
+    marching order) or a draw from `generator`. With `mesh` the RenderOut
+    holds this rank's rows of the base image ([rows_local*V, ...]; the noise
+    is still drawn for the whole image, so every rank draws the same)."""
     if with_diffuse and diffuse_only:
         raise ValueError("with_diffuse renders both colours; diffuse_only renders the degree-0 one as the colour")
     stream_composite = not getattr(config, "use_fused_kernel", False)
@@ -469,7 +492,7 @@ def render_shear_warp(
         flip_k=stream_composite and not positive,
         with_diffuse=with_diffuse, stream_composite=stream_composite,
         background_value=background_value, diffuse_only=diffuse_only,
-        num_shade_channels=num_shade_channels, noise=noise,
+        num_shade_channels=num_shade_channels, noise=noise, mesh=mesh,
     )
     geom = BaseImageGeometry(eye=eye_w, dirs=dirs_w, lo=lo2, hi=hi2, perm_index=branch)
     return out, geom

@@ -26,8 +26,14 @@ runs the stage ladder; unless `fast_debug_mode`, it draws the camera rays
 once, renders feedback PNGs every `feedback_freq` steps and tests on the
 held-out set every `test_freq` steps, both left out of the training time.
 It resumes from a training-state file of either package, runs the coarse
-stages on the CPU when asked, and streams a memmap-backed stage. Not
-ported yet: `num_devices > 1`.
+stages on the CPU when asked, and streams a memmap-backed stage.
+
+Every step builder takes a `mesh` (voxe_tpu_torch.parallel) for
+data-parallel ray batching, as the JAX one does: each rank draws the whole
+step's randomness (ray indices, jitter, density noise), takes its share of
+the rays or base rows, divides its losses by the whole batch's count or
+coverage, and one all-reduce sums the gradients (and the metrics' shares)
+before Adam, so the sharded step is the unsharded one.
 """
 from __future__ import annotations
 
@@ -42,8 +48,10 @@ import torch
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.grid.voxels import VoxelGrid, grid_query, scale_voxel_grid
 from voxe_tpu_torch.models.volumetric import VolumetricModel
+from voxe_tpu_torch.parallel.distributed import is_local_writer
+from voxe_tpu_torch.parallel.mesh import all_reduce_grads, maybe_mesh, params_of, replicate, shard_axis, shard_rays
 from voxe_tpu_torch.render.accumulate import accumulate_radiance_density_on_rays
-from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, _sample
+from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, _sample, draw_ray_randomness
 from voxe_tpu_torch.render.process import _shade_and_mask
 from voxe_tpu_torch.render.rays import Rays
 from voxe_tpu_torch.render.shearwarp import (
@@ -109,10 +117,14 @@ def render_specular_and_diffuse(
 
 
 def photometric_losses(colour, diffuse_colour, target, apply_diffuse: bool, mask=None, denom=None):
-    """L1 losses (the objective) and the MSE-derived PSNRs, optionally
-    masked and divided by `denom` (the shear-warp step's base coverage)."""
+    """(the L1 objective, its metrics: the L1 losses and the MSEs, which
+    `psnr_metrics` turns into PSNRs), optionally masked, and divided by
+    `denom` (the shear-warp step's base coverage, or a sharded batch's whole
+    count) when given: under a mesh each rank's share of every one of them."""
     def mean(x):
-        return x.mean() if mask is None else (x * mask).sum() / denom
+        if denom is None:
+            return x.mean()
+        return (x if mask is None else x * mask).sum() / denom
 
     spec_l1 = mean(torch.abs(colour - target))
     spec_mse = mean((colour - target) ** 2)
@@ -122,13 +134,19 @@ def photometric_losses(colour, diffuse_colour, target, apply_diffuse: bool, mask
         diff_l1 = mean(torch.abs(diffuse_colour - target))
         diff_mse = mean((diffuse_colour - target) ** 2)
         total = total + diff_l1
-    metrics = dict(
+    sums = dict(
         specular_loss=spec_l1.detach(),
         diffuse_loss=diff_l1.detach(),
-        specular_psnr=mse2psnr(spec_mse.detach()),
-        diffuse_psnr=mse2psnr(diff_mse.detach()),
+        specular_mse=spec_mse.detach(),
+        diffuse_mse=diff_mse.detach(),
     )
-    return total, metrics
+    return total, sums
+
+
+def psnr_metrics(sums: dict) -> dict:
+    """`photometric_losses`' metrics with each MSE turned into its PSNR."""
+    return {("specular_psnr" if k == "specular_mse" else "diffuse_psnr" if k == "diffuse_mse" else k):
+            (mse2psnr(v) if k.endswith("_mse") else v) for k, v in sums.items()}
 
 
 def make_adam(grid: VoxelGrid, lr: float) -> torch.optim.Adam:
@@ -150,13 +168,26 @@ def apply_lr_schedule(optimizer: torch.optim.Optimizer, lr_schedule) -> None:
         group["lr"] = lr_schedule(count)
 
 
-def optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metrics: dict, lr_schedule) -> dict:
+def optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metrics: dict, lr_schedule,
+                   mesh=None, total_share: Optional[torch.Tensor] = None) -> dict:
     """Backward of `total`, the lr of the schedule, one update; returns
-    `metrics` with total_loss."""
-    total.backward()
+    `metrics` with total_loss.
+
+    With `mesh`, every value of `metrics` is this rank's share of the metric
+    and `total_share` (by default `total`) its share of the total loss: one
+    all-reduce between the backward and the update sums the gradients and
+    the shares, so every rank takes the unsharded update and reports the
+    unsharded metrics."""
+    if mesh is None:
+        total.backward()
+        metrics["total_loss"] = total.detach()
+    else:
+        if total.requires_grad:  # a rank may hold no term with a gradient
+            total.backward()
+        shares = {**metrics, "total_loss": total if total_share is None else total_share}
+        metrics = all_reduce_grads(mesh, params_of([optimizer]), shares)
     apply_lr_schedule(optimizer, lr_schedule)
     optimizer.step()
-    metrics["total_loss"] = total.detach()
     return metrics
 
 
@@ -179,13 +210,17 @@ def make_recon_train_step(
     ray_batch_size: int,
     apply_diffuse_render_regularization: bool = True,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
-    """The exact ray-batch update.
+    """The exact ray-batch update. With `mesh` each rank renders its share
+    of the drawn rays.
 
     signature: step(grid, images [N,H,W,3], poses [N,3,4], batch_indices [B],
                     generator, *, flat_idx=None, t_rand=None) -> metrics
     `flat_idx` ([R] into B*H*W) and `t_rand` ([R, S]) replace the draws."""
-    update = _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule)
+    update = _ray_batch_update(
+        intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule, mesh
+    )
 
     def step(grid, images, poses, batch_indices, generator=None, *, flat_idx=None, t_rand=None):
         batch_indices = torch.as_tensor(batch_indices, device=images.device)
@@ -200,18 +235,28 @@ def make_recon_train_step(
     return step
 
 
-def _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule):
+def _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule,
+                      mesh=None):
     """The exact update on a drawn ray batch: cast, render both composites,
-    L1 losses, backward, Adam."""
+    L1 losses, backward, Adam. With `mesh`, this rank's share of the rays,
+    the losses over the whole batch's count."""
 
     def update(grid, batch_poses, flat_idx, pixels, generator, t_rand):
+        denom = None
+        if mesh is not None:
+            if t_rand is None:
+                # the jitter of the whole batch (the recon composites add no density noise)
+                t_rand = draw_ray_randomness(render_config, flat_idx.shape[0], generator, density_noise=False)[0]
+            denom = flat_idx.shape[0] * NUM_COLOUR_CHANNELS
+            flat_idx, pixels = shard_rays(mesh, flat_idx), shard_rays(mesh, pixels)
+            t_rand = None if t_rand is None else shard_rays(mesh, t_rand)
         rays = cast_rays_at_indices(intrinsics, batch_poses, flat_idx)
         optimizer.zero_grad(set_to_none=True)
         out_spec, out_diff = render_specular_and_diffuse(grid, rays, render_config, generator, t_rand)
-        total, metrics = photometric_losses(
-            out_spec.colour, out_diff.colour, pixels, apply_diffuse_render_regularization
+        total, sums = photometric_losses(
+            out_spec.colour, out_diff.colour, pixels, apply_diffuse_render_regularization, denom=denom
         )
-        return optimizer_step(optimizer, total, metrics, lr_schedule)
+        return psnr_metrics(optimizer_step(optimizer, total, sums, lr_schedule, mesh))
 
     return update
 
@@ -222,16 +267,19 @@ def make_recon_train_step_streaming(
     optimizer: torch.optim.Optimizer,
     apply_diffuse_render_regularization: bool = True,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """The exact update for a streaming (memmap-backed) dataset: the host
     drew the pixel indices and gathered their [R, 3] pixels; the card casts
     the rays from the step's small pose block, renders, takes the backward
     and runs Adam. Host arrays go over pinned and without blocking, so the
-    step adds no host sync.
+    step adds no host sync. With `mesh` each rank renders its share of them.
 
     signature: step(grid, batch_poses [B,3,4], flat_idx [R] (into B*H*W),
                     pixels [R,3], generator=None, *, t_rand=None) -> metrics"""
-    update = _ray_batch_update(intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule)
+    update = _ray_batch_update(
+        intrinsics, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule, mesh
+    )
 
     def step(grid, batch_poses, flat_idx, pixels, generator=None, *, t_rand=None):
         dev = grid.densities.device
@@ -260,17 +308,19 @@ def make_recon_train_multi_step(
     steps_per_call: int,
     apply_diffuse_render_regularization: bool = True,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """K exact ray-batch steps a call. Each step draws its image batch
     ([image_batch_size] of `num_train_images`), its pixel indices and its
-    stratified jitter on the device, from `generator`.
+    stratified jitter on the device, from `generator` (with `mesh`, every
+    rank the same, then its share of the rays).
 
     signature: multi(grid, images, poses, generator=None, *,
                      batch_indices [K, B]=None, flat_idx [K, R]=None,
                      t_rand [K, R, S]=None) -> last step's metrics
     The keyword arrays replace the draws."""
     step = make_recon_train_step(
-        intrinsics, render_config, optimizer, ray_batch_size, apply_diffuse_render_regularization, lr_schedule
+        intrinsics, render_config, optimizer, ray_batch_size, apply_diffuse_render_regularization, lr_schedule, mesh
     )
 
     def multi(grid, images, poses, generator=None, *, batch_indices=None, flat_idx=None, t_rand=None):
@@ -312,9 +362,12 @@ def make_recon_train_step_shearwarp(
     base_hw,
     apply_diffuse_render_regularization: bool = True,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """The shear-warp update: one whole base-plane frame per step, L1 in
-    base space against the pre-warped target, masked to its coverage.
+    base space against the pre-warped target, masked to its coverage. With
+    `mesh` each rank renders and compares its share of the base rows,
+    divided by the whole frame's coverage.
 
     signature: step(grid, targets [N,U,V,3], masks [N,U,V], poses [N,3,4],
                     image_idx, generator=None) -> metrics
@@ -325,20 +378,22 @@ def make_recon_train_step_shearwarp(
         image_idx = int(image_idx)
         target, mask, pose_rt = targets[image_idx], masks[image_idx], poses[image_idx]
         pose = CameraPose(rotation=pose_rt[:, :3], translation=pose_rt[:, 3:])
-        m = mask[..., None]
         denom = torch.clamp(mask.sum() * NUM_COLOUR_CHANNELS, min=1.0)
+        if mesh is not None:
+            target, mask = shard_axis(mesh, target, 0), shard_axis(mesh, mask, 0)
+        rows_hw = (mask.shape[0], base_hw[1])
         optimizer.zero_grad(set_to_none=True)
         out, _ = render_shear_warp(
             grid, pose, render_config, base_hw=base_hw, with_diffuse=apply_diffuse_render_regularization,
-            generator=generator,
+            generator=generator, mesh=mesh,
         )
-        img = out.colour.reshape(*base_hw, NUM_COLOUR_CHANNELS)
-        dimg = out.extra["diffuse_colour"].reshape(*base_hw, NUM_COLOUR_CHANNELS) if (
+        img = out.colour.reshape(*rows_hw, NUM_COLOUR_CHANNELS)
+        dimg = out.extra["diffuse_colour"].reshape(*rows_hw, NUM_COLOUR_CHANNELS) if (
             apply_diffuse_render_regularization) else None
-        total, metrics = photometric_losses(
-            img, dimg, target, apply_diffuse_render_regularization, mask=m, denom=denom
+        total, sums = photometric_losses(
+            img, dimg, target, apply_diffuse_render_regularization, mask=mask[..., None], denom=denom
         )
-        return optimizer_step(optimizer, total, metrics, lr_schedule)
+        return psnr_metrics(optimizer_step(optimizer, total, sums, lr_schedule, mesh))
 
     return step
 
@@ -350,15 +405,17 @@ def make_recon_train_multi_step_shearwarp(
     steps_per_call: int,
     apply_diffuse_render_regularization: bool = True,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """K shear-warp steps a call, each the single step above on its own
-    image. The K image indices are drawn on the host (the trainer's numpy
-    Generator), as in the JAX trainer.
+    image (with `mesh`, this rank's base rows). The K image indices are
+    drawn on the host (the trainer's numpy Generator), as in the JAX
+    trainer.
 
     signature: multi(grid, targets, masks, poses, image_idxs [K],
                      generator=None) -> last step's metrics"""
     step = make_recon_train_step_shearwarp(
-        render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule
+        render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule, mesh
     )
 
     def multi(grid, targets, masks, poses, image_idxs, generator=None):
@@ -431,22 +488,32 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     iteration. `coarse_stages_on_cpu` runs every stage but the last on the
     CPU (with `coarse_ray_batch_size` rays when given). A memmap-backed
     (streaming) stage gathers its pixels on the host and trains on the exact
-    renderer, one step a call."""
-    if num_devices != 1:
-        raise NotImplementedError(f"num_devices={num_devices!r}: multi-device training is not ported yet")
+    renderer, one step a call.
+
+    `num_devices > 1` batches the rays data-parallel over that many
+    processes of the initialised default group (`maybe_mesh`), one per
+    device, every stage but a coarse one on the CPU; the state is
+    replicated, and only the process with local rank 0 writes files (the
+    others skip the feedback renders and tests, which draw nothing)."""
     del verbose_rendering
+    mesh = maybe_mesh(num_devices)
+    if mesh is not None:
+        log.info(f"data-parallel ray batching over {num_devices} devices")
+    writer = is_local_writer()
     output_dir = Path(output_dir)
     model_dir = output_dir / "saved_models"
     logs_dir = output_dir / "training_logs"
     render_dir = logs_dir / "rendered_output"
-    for d in (model_dir, logs_dir, render_dir):
-        d.mkdir(parents=True, exist_ok=True)
-    try:
-        from tensorboardX import SummaryWriter
+    tb_writer = None
+    if writer:
+        for d in (model_dir, logs_dir, render_dir):
+            d.mkdir(parents=True, exist_ok=True)
+        try:
+            from tensorboardX import SummaryWriter
 
-        tb_writer = SummaryWriter(str(logs_dir / "tensorboard"))
-    except ImportError:
-        tb_writer = None
+            tb_writer = SummaryWriter(str(logs_dir / "tensorboard"))
+        except ImportError:
+            pass
     dev = vol_mod.grid.densities.device
 
     final_dims = vol_mod.grid.grid_dims
@@ -469,6 +536,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         densities=torch.rand(grid.densities.shape, generator=gen, device=dev) * (hi - lo) + lo,
         features=torch.rand(grid.features.shape, generator=gen, device=dev) * (hi - lo) + lo,
     )
+    if mesh is not None:
+        replicate(mesh, [grid.densities, grid.features])
     generators = {dev.type: gen}
 
     if render_feedback_pose is None:
@@ -480,7 +549,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         CAMERA_INTRINSICS: list(camera_intrinsics),
         HEMISPHERICAL_RADIUS: train_dataset.get_hemispherical_radius_estimate(),
     }
-    if not fast_debug_mode:
+    if not fast_debug_mode and writer:
         from voxe_tpu_torch.viz.static import visualize_camera_rays
 
         log.info("creating a camera-rays visualization ...")
@@ -505,6 +574,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             continue
         on_cpu = coarse_stages_on_cpu and stage != num_stages
         stage_dev = torch.device("cpu") if on_cpu else dev
+        stage_mesh = None if on_cpu else mesh  # a coarse stage on the CPU runs unsharded on every rank, as in JAX
         if on_cpu:
             log.info(f"stage {stage} runs on the CPU (coarse_stages_on_cpu)")
         grid = _on(grid, stage_dev)
@@ -532,12 +602,14 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             log.info(f"shear-warp path: base lattice {base_hw}")
             sw_targets, sw_masks = warp_dataset_to_base(images, poses, intr, grid, base_hw)
             train_step = make_recon_train_step_shearwarp(
-                render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule=schedule
+                render_config, optimizer, base_hw, apply_diffuse_render_regularization, lr_schedule=schedule,
+                mesh=stage_mesh,
             )
 
             def build(k):  # called within this stage only
                 return make_recon_train_multi_step_shearwarp(
-                    render_config, optimizer, base_hw, k, apply_diffuse_render_regularization, lr_schedule=schedule
+                    render_config, optimizer, base_hw, k, apply_diffuse_render_regularization, lr_schedule=schedule,
+                    mesh=stage_mesh,
                 )
         elif streaming:
             if steps_per_call > 1:
@@ -545,19 +617,20 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                             "falling back to steps_per_call=1")
                 steps_per_call = 1
             train_step = make_recon_train_step_streaming(
-                intr, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule=schedule
+                intr, render_config, optimizer, apply_diffuse_render_regularization, lr_schedule=schedule,
+                mesh=stage_mesh,
             )
         else:
             def build(k):  # called within this stage only
                 n = len(stage_dataset)
                 return make_recon_train_multi_step(
                     intr, render_config, optimizer, stage_ray_batch, n, min(image_batch_cache_size, n), k,
-                    apply_diffuse_render_regularization, lr_schedule=schedule,
+                    apply_diffuse_render_regularization, lr_schedule=schedule, mesh=stage_mesh,
                 )
 
             train_step = make_recon_train_step(
                 intr, render_config, optimizer, stage_ray_batch, apply_diffuse_render_regularization,
-                lr_schedule=schedule,
+                lr_schedule=schedule, mesh=stage_mesh,
             )
         multi_steps = {}
 
@@ -610,7 +683,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                     for k, v in metrics_host.items():
                         tb_writer.add_scalar(k, v, global_step=global_step)
                 last_time = time.perf_counter()
-            if (global_step % feedback_freq == 0 or stage_iteration == 1 or last_iter) and not fast_debug_mode:
+            if (global_step % feedback_freq == 0 or stage_iteration == 1 or last_iter) and not fast_debug_mode and (
+                    writer):
                 from voxe_tpu_torch.viz.static import visualize_sh_vox_grid_vol_mod_rendered_feedback
 
                 t0 = time.perf_counter()
@@ -620,7 +694,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 )
                 last_time = time.perf_counter()
                 feedback_s += last_time - t0
-            if test_dataset is not None and not fast_debug_mode and (global_step % test_freq == 0 or last_iter):
+            if test_dataset is not None and not fast_debug_mode and writer and (
+                    global_step % test_freq == 0 or last_iter):
                 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 
                 t0 = time.perf_counter()
@@ -629,7 +704,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 )
                 last_time = time.perf_counter()
                 test_s += last_time - t0
-            if global_step % save_freq == 0 or stage_iteration == 1 or last_iter:
+            if (global_step % save_freq == 0 or stage_iteration == 1 or last_iter) and writer:
                 VolumetricModel(_on(grid, grid.densities.device), render_config).save(
                     model_dir / f"model_stage_{stage}_iter_{global_step}.pth", extra_info=extra_info
                 )
@@ -655,7 +730,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
 
     vol_mod.grid = _on(grid, dev)
     vol_mod.extra_info.update(extra_info)
-    vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
+    if writer:
+        vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
     if tb_writer is not None:
         tb_writer.close()
     log.info(f"Training complete; actual training time: {timedelta(seconds=time_training)}",

@@ -26,6 +26,12 @@ There is no jit: the JAX package's single-dispatch iteration is a Python
 function here; its `jax.random` draws (t, the VAE's eps, the noise, the
 exact path's jitter) come from a `torch.Generator` or are passed in. The
 token positions need no padded bucket: the maps are the same.
+
+Every step builder takes a `mesh` (voxe_tpu_torch.parallel), as the JAX one
+does: each rank renders its share of the base rows (or rays), the renders
+are gathered (`gather_axis`) so that the masked losses divide by the whole
+frame's mask, the TV terms count on rank 0 only, and one all-reduce sums
+both grids' gradients and the metrics before the two Adam updates.
 """
 from __future__ import annotations
 
@@ -42,6 +48,8 @@ from voxe_tpu_torch.grid.voxels import VoxelGrid
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
 from voxe_tpu_torch.models.sd.tokenizer import HashTokenizer
 from voxe_tpu_torch.models.volumetric import VolumetricModel
+from voxe_tpu_torch.parallel.distributed import is_local_writer
+from voxe_tpu_torch.parallel.mesh import all_reduce_grads, gather_axis, maybe_mesh, params_of, replicate
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_sh_voxel_grid_attn
 from voxe_tpu_torch.render.rays import cast_rays, flatten_rays
 from voxe_tpu_torch.render.shearwarp import (
@@ -54,7 +62,13 @@ from voxe_tpu_torch.render.shearwarp import (
 from voxe_tpu_torch.seg.graphcut import get_edit_region, merge_edit_region
 from voxe_tpu_torch.train.losses import tv_loss_on_grid
 from voxe_tpu_torch.train.recon import apply_lr_schedule, exponential_decay_staircase
-from voxe_tpu_torch.train.sds import HEMISPHERICAL_RADIUS_CONSTANT, _sync, get_dir_batch_from_poses
+from voxe_tpu_torch.train.sds import (
+    HEMISPHERICAL_RADIUS_CONSTANT,
+    _sync,
+    get_dir_batch_from_poses,
+    render_rays_sharded,
+    replicated_share,
+)
 from voxe_tpu_torch.utils.camera import CameraPose, direction_index, get_random_pose, random_pose
 from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.logging import log
@@ -75,11 +89,18 @@ def make_attn_adam(attn: torch.Tensor, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam([attn], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
-def _step_adams(optimizers, lr_schedule) -> None:
-    """One update of each optimizer at the schedule's lr."""
+def _step_adams(optimizers, lr_schedule, metrics: dict, mesh=None) -> dict:
+    """One update of each optimizer at the schedule's lr; returns the
+    detached metrics. With `mesh` one all-reduce first sums both grids'
+    gradients and the metrics (replicated values, which rank 0 reports)."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is not None:
+        share = replicated_share(mesh)
+        metrics = all_reduce_grads(mesh, params_of(optimizers), {k: v * share for k, v in metrics.items()})
     for opt in optimizers:
         apply_lr_schedule(opt, lr_schedule)
         opt.step()
+    return metrics
 
 
 def make_dual_attn_update(
@@ -90,11 +111,12 @@ def make_dual_attn_update(
     sw_hw: tuple,
     attn_tv_weight: float,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """The dual attention-grid update given the 2D targets: both grids ride
     one two-channel attention render of the frozen density field on the
     shear-warp path (background 0), masked L1 + TV per channel, one Adam
-    step each.
+    step each. With `mesh` each rank renders its base rows.
 
     signature: update(edit_attn, obj_attn, rotation [3,3], translation [3,1],
                       edit_map [U,V], obj_map [U,V], generator=None) -> metrics
@@ -109,21 +131,24 @@ def make_dual_attn_update(
         attn2 = torch.cat([edit_attn, obj_attn], dim=-1)
         out, _ = render_shear_warp(
             base_grid.replace(attn=attn2), CameraPose(rotation, translation.reshape(3, 1)), render_config,
-            base_hw=sw_hw, attn_mode=True, background_value=0.0, generator=generator,
+            base_hw=sw_hw, attn_mode=True, background_value=0.0, generator=generator, mesh=mesh,
         )
-        rendered = orient_base_image(out.colour.reshape(*sw_hw, 2), rotation)
+        colour = out.colour.reshape(-1, sw_hw[1], 2)
+        if mesh is not None:
+            colour = gather_axis(mesh, colour, 0, sw_hw[0])
+        rendered = orient_base_image(colour, rotation)
         attn_l_e = calc_loss_on_attn_grid(rendered[..., 0], edit_map.detach())
         attn_l_o = calc_loss_on_attn_grid(rendered[..., 1], obj_map.detach())
         tv_e, tv_o = tv_loss_on_grid(edit_attn), tv_loss_on_grid(obj_attn)
-        loss_e = attn_l_e + tv_e * attn_tv_weight
-        loss_o = attn_l_o + tv_o * attn_tv_weight
+        tv_weight = attn_tv_weight * replicated_share(mesh)  # TV on the replicated grids: counted once
+        loss_e = attn_l_e + tv_e * tv_weight
+        loss_o = attn_l_o + tv_o * tv_weight
         (loss_e + loss_o).backward()  # the channels' losses are independent
-        _step_adams((optimizer_edit, optimizer_object), lr_schedule)
         metrics = dict(
-            attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=loss_e,
-            attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=loss_o,
+            attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=attn_l_e + tv_e * attn_tv_weight,
+            attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=attn_l_o + tv_o * attn_tv_weight,
         )
-        return {k: v.detach() for k, v in metrics.items()}
+        return _step_adams((optimizer_edit, optimizer_object), lr_schedule, metrics, mesh)
 
     return update
 
@@ -150,8 +175,11 @@ def make_refine_iter_shearwarp(
     timestamp: int,
     attn_tv_weight: float,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
-    """One whole refinement iteration on the shear-warp path.
+    """One whole refinement iteration on the shear-warp path (with `mesh`,
+    each rank renders its base rows of the frame and of the attention
+    render; SD runs replicated on the gathered frame).
 
     signature: iter(edit_attn, obj_attn, text_embeddings [2,77,D],
                     rotation [3,3], translation [3,1], token_indices [B],
@@ -163,7 +191,7 @@ def make_refine_iter_shearwarp(
     sw_hw = tuple(sw_hw)
     frame_config = render_config.replace(stochastic_density_noise_std=0.0)
     dual_update = make_dual_attn_update(
-        render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, attn_tv_weight, lr_schedule
+        render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, attn_tv_weight, lr_schedule, mesh
     )
 
     def refine_iter(
@@ -177,9 +205,12 @@ def make_refine_iter_shearwarp(
         with torch.no_grad():
             out, _ = render_shear_warp(
                 base_grid.replace(attn=edit_attn.detach()), CameraPose(rotation, translation.reshape(3, 1)),
-                frame_config, base_hw=sw_hw,
+                frame_config, base_hw=sw_hw, mesh=mesh,
             )
-            pred_rgb = orient_base_image(out.colour.reshape(*sw_hw, 3), rotation)[None]
+            frame = out.colour.reshape(-1, sw_hw[1], 3)
+            if mesh is not None:
+                frame = gather_axis(mesh, frame, 0, sw_hw[0])
+            pred_rgb = orient_base_image(frame, rotation)[None]
         maps = sd.attention_maps(
             text_embeddings, pred_rgb, t, token_indices, generator=generator, noise=noise, vae_eps=vae_eps
         )
@@ -206,11 +237,13 @@ def make_refine_multi_step(
     steps_per_call: int,
     radius: float,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """K refinement iterations a call (random-pose mode, shear-warp path):
     each draws a hemisphere pose, buckets its view direction (side,
     overhead, back, front = 0..3) and runs `make_refine_iter_shearwarp` with
-    that direction's text embeddings and token selection.
+    that direction's text embeddings and token selection (with `mesh`,
+    every rank the same draws).
 
     signature: multi(edit_attn, obj_attn, text_by_dir [4, 2, 77, D],
                      selection_by_dir (4 of (token_indices, edit_mask,
@@ -221,7 +254,7 @@ def make_refine_multi_step(
     draws."""
     refine_iter = make_refine_iter_shearwarp(
         sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp, attn_tv_weight,
-        lr_schedule,
+        lr_schedule, mesh,
     )
 
     def multi(edit_attn, obj_attn, text_by_dir, selection_by_dir, generator=None, *,
@@ -254,21 +287,26 @@ def make_attn_train_step(
     base_grid: VoxelGrid,
     attn_tv_weight: float,
     lr_schedule=None,
+    mesh=None,
 ) -> Callable:
     """The dual update on the exact renderer: each grid's attention render
     along the flat rays (jittered as the config says), masked L1 + TV, one
-    Adam step each.
+    Adam step each. With `mesh` each rank renders its share of the rays.
 
     signature: step(edit_attn, obj_attn, rays, edit_map [H,W], obj_map [H,W],
                     *, generator=None, t_rand_edit=None, t_rand_object=None)
                -> metrics
     `t_rand_*` ([R, S]) replace the jitter drawn from `generator`."""
 
+    tv_weight = attn_tv_weight * replicated_share(mesh)  # TV on the replicated grids: counted once
+
     def grid_loss(attn, rays, target, generator, t_rand):
-        out = render_sh_voxel_grid_attn(base_grid.replace(attn=attn), rays, render_config, generator=generator, t_rand=t_rand)
-        attn_loss = calc_loss_on_attn_grid(out.colour[..., 0], target.detach())
+        colour = render_rays_sharded(
+            render_sh_voxel_grid_attn, base_grid.replace(attn=attn), rays, render_config, generator, mesh, t_rand
+        )
+        attn_loss = calc_loss_on_attn_grid(colour[..., 0], target.detach())
         tv = tv_loss_on_grid(attn)
-        return attn_loss + tv * attn_tv_weight, attn_loss, tv
+        return attn_loss + tv * tv_weight, attn_loss, tv
 
     def step(edit_attn, obj_attn, rays, edit_map, obj_map, *, generator=None, t_rand_edit=None, t_rand_object=None):
         optimizer_edit.zero_grad(set_to_none=True)
@@ -276,12 +314,11 @@ def make_attn_train_step(
         loss_e, attn_l_e, tv_e = grid_loss(edit_attn, rays, edit_map, generator, t_rand_edit)
         loss_o, attn_l_o, tv_o = grid_loss(obj_attn, rays, obj_map, generator, t_rand_object)
         (loss_e + loss_o).backward()
-        _step_adams((optimizer_edit, optimizer_object), lr_schedule)
         metrics = dict(
-            attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=loss_e,
-            attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=loss_o,
+            attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=attn_l_e + tv_e * attn_tv_weight,
+            attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=attn_l_o + tv_o * attn_tv_weight,
         )
-        return {k: v.detach() for k, v in metrics.items()}
+        return _step_adams((optimizer_edit, optimizer_object), lr_schedule, metrics, mesh)
 
     return step
 
@@ -361,11 +398,20 @@ def refine_edited_relu_field(
     on the shear-warp path in random-pose mode, K iterations run a call
     (`make_refine_multi_step`) and summary, feedback and snapshots follow
     the JAX package's K-step cadence: when the step is within K of a multiple
-    of the frequency, on the first call and on the last."""
+    of the frequency, on the first call and on the last.
+
+    `num_devices > 1` shards every iteration's renders over that many
+    processes of the initialised default group (`maybe_mesh`); the
+    attention grids are replicated from rank 0 at start, and only the
+    process with local rank 0 renders feedback and writes files (the others
+    still take the feedback's attention maps, which draw from the
+    generator, so every rank draws alike). Every rank runs the graph cut."""
     if prompt == "none":
         raise ValueError("you have to supply a text prompt")
-    if num_devices > 1:
-        raise NotImplementedError("num_devices > 1: multi-device refinement is not ported yet")
+    mesh = maybe_mesh(num_devices)
+    if mesh is not None:
+        log.info(f"refinement: ray-DP over {num_devices} devices")
+    writer = is_local_writer()
     del hf_auth_token, ray_batch_size, scale_factor, apply_diffuse_render_regularization, verbose_rendering
     output_dir = Path(output_dir)
     im_h, im_w = image_dims
@@ -396,8 +442,9 @@ def refine_edited_relu_field(
     }
     model_dir = output_dir / "saved_models"
     render_dir = output_dir / "training_logs" / "rendered_output"
-    for d in (model_dir, render_dir):
-        d.mkdir(parents=True, exist_ok=True)
+    if writer:
+        for d in (model_dir, render_dir):
+            d.mkdir(parents=True, exist_ok=True)
 
     # two optimizers over the two attention grids only; densities and features stay frozen
     schedule = exponential_decay_staircase(learning_rate, lr_decay_steps_per_stage, lr_decay_gamma_per_stage)
@@ -405,13 +452,16 @@ def refine_edited_relu_field(
     obj_attn = vol_mod_object.grid.attn.detach().clone()
     optimizer_edit = make_attn_adam(edit_attn, learning_rate)
     optimizer_object = make_attn_adam(obj_attn, learning_rate)
+    if mesh is not None:
+        replicate(mesh, [edit_attn, obj_attn])
     g = vol_mod_edit.grid
     base_grid = g.replace(densities=g.densities.detach(), features=g.features.detach())
     render_config = vol_mod_edit.render_config
 
     if use_shear_warp:
         refine_iter = make_refine_iter_shearwarp(
-            sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp, attn_tv_weight, schedule
+            sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp, attn_tv_weight, schedule,
+            mesh,
         )
         dir_selection = {
             d: token_selection(sd.get_num_tokens(prompt + f", {d} view"), edit_idx, object_idx)
@@ -430,7 +480,7 @@ def refine_edited_relu_field(
             return orient_base_image(out.colour.reshape(*sw_hw, 3), rotation)[None]
     else:
         attn_step = make_attn_train_step(
-            render_config, optimizer_edit, optimizer_object, base_grid, attn_tv_weight, schedule
+            render_config, optimizer_edit, optimizer_object, base_grid, attn_tv_weight, schedule, mesh
         )
 
     rng = np.random.default_rng(seed)
@@ -458,14 +508,18 @@ def refine_edited_relu_field(
         e_attn, o_attn = edit_attn.detach(), obj_attn.detach()
         if use_shear_warp:  # the iteration keeps its maps: recompute them for the diagnostics
             num_tokens = sd.get_num_tokens(m_prompt)
-            gt_maps, _ = sd.get_attn_map(
+            gt_maps, _ = sd.get_attn_map(  # on every rank: it draws from the generator
                 m_prompt, frame_sw(e_attn, rot, trans, False), timestamp,
                 list(range(1, num_tokens + 1)), generator=gen,
             )
+            if not writer:
+                return
             edit_map, obj_map = targets_from_maps(gt_maps, num_tokens)
             edit_render = frame_sw(e_attn, rot, trans, True)
             obj_render = frame_sw(o_attn, rot, trans, True)
         else:
+            if not writer:
+                return
             with torch.no_grad():
                 edit_render, obj_render = (
                     render_sh_voxel_grid_attn(base_grid.replace(attn=a), rays, render_config).colour[..., 0].reshape(im_h, im_w)
@@ -481,6 +535,8 @@ def refine_edited_relu_field(
         )
 
     def save_snapshots(global_step):
+        if not writer:
+            return
         for name, attn in (("edit", edit_attn), ("object", obj_attn)):
             VolumetricModel(base_grid.replace(attn=attn.detach()), render_config).save(
                 model_dir / f"model_{name}_iter_{global_step}.pth", extra_info=extra_info
@@ -502,7 +558,7 @@ def refine_edited_relu_field(
             if chunk not in multi_steps:
                 multi_steps[chunk] = make_refine_multi_step(
                     sd, render_config, optimizer_edit, optimizer_object, base_grid, sw_hw, timestamp,
-                    attn_tv_weight, chunk, HEMISPHERICAL_RADIUS_CONSTANT, schedule,
+                    attn_tv_weight, chunk, HEMISPHERICAL_RADIUS_CONSTANT, schedule, mesh,
                 )
             last_time = time.perf_counter()
             metrics = multi_steps[chunk](edit_attn, obj_attn, text_by_dir, selection_by_dir, gen)
@@ -573,7 +629,7 @@ def refine_edited_relu_field(
         vol_mod_edit=vol_mod_edit,
         vol_mod_object=vol_mod_object,
         vol_mod_output=vol_mod_output,
-        viz_dir=None if fast_debug_mode else render_dir,
+        viz_dir=None if fast_debug_mode or not writer else render_dir,
         K=kval,
         edit_mask_thresh=edit_mask_thresh,
         num_obj_voxels_thresh=num_obj_voxels_thresh,
@@ -585,9 +641,10 @@ def refine_edited_relu_field(
     merge_edit_region(vol_mod_output, vol_mod_ref)
     graph_cut_s = time.perf_counter() - t0
 
-    vol_mod_edit.save(model_dir / "model_final_attn_edit.pth", extra_info=extra_info)
-    vol_mod_object.save(model_dir / "model_final_attn_object.pth", extra_info=extra_info)
-    vol_mod_output.save(model_dir / "model_final_refined.pth", extra_info=extra_info)
+    if writer:
+        vol_mod_edit.save(model_dir / "model_final_attn_edit.pth", extra_info=extra_info)
+        vol_mod_object.save(model_dir / "model_final_attn_object.pth", extra_info=extra_info)
+        vol_mod_output.save(model_dir / "model_final_refined.pth", extra_info=extra_info)
     log.info(
         f"Refinement complete; actual training time: {timedelta(seconds=time_training)}",
         extra={

@@ -18,6 +18,15 @@ optax.adam's update). The step kinds:
 
 There is no jit: the JAX `lax.scan` over K steps is a Python loop, and the
 random draws come from a `torch.Generator` (tests may inject them).
+
+Every step takes a `mesh` (voxe_tpu_torch.parallel), as the JAX one does:
+each rank renders its share of the base rows (or rays), `gather_axis`
+assembles the frame, and the resize, VAE and UNet run replicated on it
+with the same draws on every rank, so the SDS gradient reaching the frame
+is the same everywhere and the gather's backward hands each rank its rows.
+The terms computed on the replicated grid (density and feature
+correlation, TV) count on rank 0 only (`replicated_share`), and so do the
+metrics, and one all-reduce sums the gradients and the metrics before Adam.
 `train_sh_vox_grid_vol_mod_with_posed_images_and_sds` is the editing loop:
 host pose draws from a numpy Generator (the same sequence as the JAX loop
 for the same seed), the t schedule, direction-keyed text embeddings, the
@@ -37,7 +46,9 @@ from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.grid.voxels import VoxelGrid
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion, scoreDistillationLoss
 from voxe_tpu_torch.models.volumetric import VolumetricModel
-from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_sh_voxel_grid
+from voxe_tpu_torch.parallel.distributed import is_local_writer
+from voxe_tpu_torch.parallel.mesh import gather_axis, replicate, shard_rays
+from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, draw_ray_randomness, render_sh_voxel_grid
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.render.shearwarp import (
     check_shear_warp_hemisphere,
@@ -93,6 +104,13 @@ def get_dir_batch_from_poses(poses: np.ndarray):
     return dir_batch
 
 
+def replicated_share(mesh) -> float:
+    """1.0 on the rank that counts the terms every rank computes alike (the
+    only process, or rank 0 of a mesh), else 0.0: their gradient and their
+    metrics then enter the all-reduce's sum once."""
+    return 1.0 if mesh is None or mesh.rank == 0 else 0.0
+
+
 def _regularize(
     grid: VoxelGrid,
     ref_densities,
@@ -107,30 +125,69 @@ def _regularize(
     tv_features_weight: float = 0.0,
     l2_mode: bool = False,
     l1_mode: bool = False,
+    share: float = 1.0,
 ):
     """Add the volumetric terms to `total`: the photometric loss (uncoupled
     mode) or density and feature correlation, then TV. The photometric loss
-    takes the density-correlation weight, as in the reference."""
+    takes the density-correlation weight, as in the reference. The terms on
+    the grid itself are scaled by `share` (`replicated_share`); the
+    photometric loss, taken on a gathered frame, is not."""
     if photometric is not None:
         total = total + photometric * density_correlation_weight
         metrics["specular_loss"] = photometric.detach()
     else:
         dcl, _ = density_correlation_loss_fn(grid.densities, ref_densities, l2_mode=l2_mode, l1_mode=l1_mode)
-        total = total + dcl * density_correlation_weight
+        total = total + dcl * (density_correlation_weight * share)
         metrics["density_correlation_loss"] = dcl.detach()
         if feature_correlation_weight > 0.0:
             fcl = feature_correlation_loss(grid.features, ref_features)
-            total = total + fcl * feature_correlation_weight
+            total = total + fcl * (feature_correlation_weight * share)
             metrics["feature_correlation_loss"] = fcl.detach()
     if tv_density_weight > 0.0:
         tv_d = tv_loss_on_grid(torch.relu(grid.densities))
-        total = total + tv_d * tv_density_weight
+        total = total + tv_d * (tv_density_weight * share)
         metrics["tv_density_loss"] = tv_d.detach()
     if tv_features_weight > 0.0:
         tv_f = tv_loss_on_grid(grid.features)
-        total = total + tv_f * tv_features_weight
+        total = total + tv_f * (tv_features_weight * share)
         metrics["tv_features_loss"] = tv_f.detach()
     return total, metrics
+
+
+def _update(optimizer, total, metrics: dict, lr_schedule, mesh) -> dict:
+    """`optimizer_step` for a step whose metrics are replicated values:
+    under a mesh rank 0 reports them and the others add zeros."""
+    share = replicated_share(mesh)
+    if mesh is not None:
+        metrics = {k: v * share for k, v in metrics.items()}
+    return optimizer_step(optimizer, total, metrics, lr_schedule, mesh, total_share=total.detach() * share)
+
+
+def render_frame_rows(grid, pose, render_config, base_hw, generator=None, mesh=None) -> torch.Tensor:
+    """The shear-warp base frame [U, V, 3] of `pose`: with `mesh`, this
+    rank's rows rendered and every rank's gathered (differentiable)."""
+    out, _ = render_shear_warp(grid, pose, render_config, base_hw=base_hw, generator=generator, mesh=mesh)
+    colour = out.colour.reshape(-1, base_hw[1], out.colour.shape[-1])
+    return colour if mesh is None else gather_axis(mesh, colour, 0, base_hw[0])
+
+
+def render_rays_sharded(render_fn, grid, rays: Rays, render_config, generator=None, mesh=None, t_rand=None):
+    """`render_fn(grid, rays, config, ...)` (an exact renderer) on flat rays,
+    `t_rand` in place of the jitter draw: with `mesh`, the whole batch's
+    draws, this rank's share of the rays and every rank's colours gathered
+    (differentiable). Returns the colour."""
+    if mesh is None:
+        return render_fn(grid, rays, render_config, generator=generator, t_rand=t_rand).colour
+    n = rays.origins.shape[0]
+    if t_rand is None:
+        t_rand, noise = draw_ray_randomness(render_config, n, generator)
+    else:
+        noise = draw_ray_randomness(render_config.replace(perturb_sampled_points=False), n, generator)[1]
+    local = Rays(shard_rays(mesh, rays.origins), shard_rays(mesh, rays.directions))
+    out = render_fn(grid, local, render_config, generator=generator,
+                    t_rand=None if t_rand is None else shard_rays(mesh, t_rand),
+                    density_noise=None if noise is None else shard_rays(mesh, noise))
+    return gather_axis(mesh, out.colour, 0, n)
 
 
 def sds_edit_loss(
@@ -150,22 +207,22 @@ def sds_edit_loss(
     generator: Optional[torch.Generator] = None,
     noise: Optional[torch.Tensor] = None,
     vae_eps: Optional[torch.Tensor] = None,
+    mesh=None,
     **weights,
 ):
     """The random-pose shear-warp step's loss (the JAX `loss_fn`): (total,
     metrics). `weights`: the `_regularize` weights and modes."""
     total = torch.zeros((), device=grid.densities.device)
     if do_sds:
-        out, _ = render_shear_warp(
-            grid, CameraPose(rotation, translation.reshape(3, 1)), render_config, base_hw=base_hw,
-            generator=generator,
+        frame = render_frame_rows(
+            grid, CameraPose(rotation, translation.reshape(3, 1)), render_config, base_hw, generator, mesh
         )
         # upright frame for SD (rows down camera -up, cols along right)
-        imgs = orient_base_image(out.colour.reshape(*base_hw, 3), rotation)[None]
+        imgs = orient_base_image(frame, rotation)[None]
         total = total + sd.sds_loss(
             text_embeddings, imgs, t, guidance_scale, generator=generator, noise=noise, vae_eps=vae_eps
         )
-    return _regularize(grid, ref_densities, ref_features, total, {}, **weights)
+    return _regularize(grid, ref_densities, ref_features, total, {}, share=replicated_share(mesh), **weights)
 
 
 def make_sds_train_step_shearwarp(
@@ -174,9 +231,11 @@ def make_sds_train_step_shearwarp(
     optimizer: torch.optim.Optimizer,
     base_hw: tuple,
     lr_schedule=None,
+    mesh=None,
     **loss_kwargs,
 ) -> Callable:
-    """The edit step on the shear-warp path.
+    """The edit step on the shear-warp path (with `mesh`, this rank's base
+    rows).
 
     signature: step(grid, text_embeddings [2,77,D], rotation [3,3],
                     translation [3,1], ref_densities, ref_features, t,
@@ -192,9 +251,9 @@ def make_sds_train_step_shearwarp(
         total, metrics = sds_edit_loss(
             grid, sd, render_config, base_hw, text_embeddings, rotation, translation,
             ref_densities, ref_features, t,
-            generator=generator, noise=noise, vae_eps=vae_eps, **loss_kwargs,
+            generator=generator, noise=noise, vae_eps=vae_eps, mesh=mesh, **loss_kwargs,
         )
-        return optimizer_step(optimizer, total, metrics, lr_schedule)
+        return _update(optimizer, total, metrics, lr_schedule, mesh)
 
     return step
 
@@ -211,12 +270,14 @@ def make_sds_train_step_shearwarp_data(
     uncoupled_mode: bool = False,
     uncoupled_l2_mode: bool = False,
     lr_schedule=None,
+    mesh=None,
     **weights,
 ) -> Callable:
     """The shear-warp edit step for dataset poses (data-pose and uncoupled
     modes): `num_frames` poses rendered and stacked into one SD batch;
     uncoupled mode adds the masked L1 (or L2) against the base-plane
-    targets, averaged over the frames.
+    targets, averaged over the frames. With `mesh` each rank renders its
+    base rows of every frame.
 
     signature: step(grid, text_embeddings, rotations [B,3,3],
                     translations [B,3,1], base_pixels [B,U,V,3],
@@ -232,11 +293,9 @@ def make_sds_train_step_shearwarp_data(
         total = torch.zeros((), device=grid.densities.device)
         frames, photometric = [], torch.zeros((), device=grid.densities.device)
         for i in range(num_frames):
-            out, _ = render_shear_warp(
-                grid, CameraPose(rotations[i], translations[i]), render_config, base_hw=base_hw,
-                generator=generator,
+            img = render_frame_rows(
+                grid, CameraPose(rotations[i], translations[i]), render_config, base_hw, generator, mesh
             )
-            img = out.colour.reshape(*base_hw, 3)
             if uncoupled_mode:
                 m = base_masks[i][..., None]
                 denom = torch.clamp(base_masks[i].sum() * 3.0, min=1.0)
@@ -251,9 +310,10 @@ def make_sds_train_step_shearwarp_data(
             )
         total, metrics = _regularize(
             grid, ref_densities, ref_features, total, {},
-            photometric=photometric / num_frames if uncoupled_mode else None, **weights,
+            photometric=photometric / num_frames if uncoupled_mode else None, share=replicated_share(mesh),
+            **weights,
         )
-        return optimizer_step(optimizer, total, metrics, lr_schedule)
+        return _update(optimizer, total, metrics, lr_schedule, mesh)
 
     return step
 
@@ -269,11 +329,13 @@ def make_sds_train_step(
     uncoupled_mode: bool = False,
     uncoupled_l2_mode: bool = False,
     lr_schedule=None,
+    mesh=None,
     **weights,
 ) -> Callable:
     """The edit step on the exact renderer: flat rays of one or more full
     frames, jittered sampling, SD on the frames; uncoupled mode's L1 (or
-    L2) against `pixels`.
+    L2) against `pixels`. With `mesh` each rank renders its share of the
+    rays (`render_rays_sharded`).
 
     signature: step(grid, text_embeddings, rays (flat), pixels [R, 3],
                     ref_densities, ref_features, t, *, generator=None,
@@ -286,7 +348,7 @@ def make_sds_train_step(
         *, generator=None, t_rand=None, noise=None, vae_eps=None,
     ):
         optimizer.zero_grad(set_to_none=True)
-        colours = render_sh_voxel_grid(grid, rays, render_config, generator=generator, t_rand=t_rand).colour
+        colours = render_rays_sharded(render_sh_voxel_grid, grid, rays, render_config, generator, mesh, t_rand)
         total = torch.zeros((), device=grid.densities.device)
         if do_sds:
             imgs = colours.reshape(-1, im_h, im_w, 3)
@@ -296,8 +358,9 @@ def make_sds_train_step(
         photometric = None
         if uncoupled_mode:
             photometric = l2_loss(colours, pixels) if uncoupled_l2_mode else l1_loss(colours, pixels)
-        total, metrics = _regularize(grid, ref_densities, ref_features, total, {}, photometric=photometric, **weights)
-        return optimizer_step(optimizer, total, metrics, lr_schedule)
+        total, metrics = _regularize(grid, ref_densities, ref_features, total, {}, photometric=photometric,
+                                     share=replicated_share(mesh), **weights)
+        return _update(optimizer, total, metrics, lr_schedule, mesh)
 
     return step
 
@@ -313,12 +376,14 @@ def make_sds_train_multi_step(
     use_shear_warp: bool = False,
     sw_base_hw: Optional[tuple] = None,
     lr_schedule=None,
+    mesh=None,
     **loss_kwargs,
 ) -> Callable:
     """K SDS edit steps per call (random-pose mode): each step draws a
     hemisphere pose, buckets its view direction to pick the text
     embeddings, draws t in [t_lo, t_hi], and takes one edit step on the
-    shear-warp path or, without `use_shear_warp`, on the exact renderer.
+    shear-warp path or, without `use_shear_warp`, on the exact renderer
+    (with `mesh`, every rank the same draws and its share of the render).
 
     signature: multi_step(grid, text_embeddings_by_dir [4, 2, 77, D],
                           ref_densities, ref_features, t_bounds [K, 2],
@@ -327,9 +392,10 @@ def make_sds_train_multi_step(
     im_h, im_w = intrinsics.height, intrinsics.width
     if use_shear_warp:
         base_hw = tuple(sw_base_hw) if sw_base_hw is not None else (im_h, im_w)
-        step = make_sds_train_step_shearwarp(sd, render_config, optimizer, base_hw, lr_schedule, **loss_kwargs)
+        step = make_sds_train_step_shearwarp(sd, render_config, optimizer, base_hw, lr_schedule, mesh, **loss_kwargs)
     else:
-        step = make_sds_train_step(sd, render_config, optimizer, (im_h, im_w), lr_schedule=lr_schedule, **loss_kwargs)
+        step = make_sds_train_step(sd, render_config, optimizer, (im_h, im_w), lr_schedule=lr_schedule, mesh=mesh,
+                                   **loss_kwargs)
 
     def multi_step(grid, text_by_dir, ref_densities, ref_features, t_bounds, generator):
         t_bounds = torch.as_tensor(t_bounds).cpu()
@@ -405,6 +471,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
     sd_weights_dir: Optional[Path] = None,
     seed: int = 42,
     fast_debug_mode: bool = False,
+    mesh=None,
     steps_per_call: int = 1,
     use_shear_warp: bool = True,
     shear_warp_base_res: Optional[int] = None,
@@ -422,7 +489,12 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
     summary / feedback / save cadence (`step % freq < steps_per_call`);
     random poses then come from `make_sds_train_multi_step`. Snapshots go to
     `output_dir/saved_models` (`model_iter_{n}.pth`, `model_final.pth`),
-    feedback PNGs to `output_dir/training_logs/rendered_output`."""
+    feedback PNGs to `output_dir/training_logs/rendered_output`.
+
+    With a `mesh` (voxe_tpu_torch.parallel) every step is sharded over its
+    ranks, the grid is replicated from rank 0 at start, and only the
+    process with local rank 0 renders feedback and writes files; the others
+    still make the feedback's pose draw, so every rank draws alike."""
     if sds_prompt == "none":
         raise ValueError("you have to supply a text prompt to use SDS")
     del scale_factor, verbose_rendering
@@ -450,11 +522,16 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
     }
     model_dir = output_dir / "saved_models"
     render_dir = output_dir / "training_logs" / "rendered_output"
-    for d in (model_dir, render_dir):
-        d.mkdir(parents=True, exist_ok=True)
+    writer = is_local_writer()
+    if writer:
+        for d in (model_dir, render_dir):
+            d.mkdir(parents=True, exist_ok=True)
 
     schedule = exponential_decay_staircase(learning_rate, lr_freq, lr_gamma, transition_begin=lr_decay_start)
     optimizer = make_adam(grid, learning_rate)
+    if mesh is not None:
+        replicate(mesh, [grid.densities, grid.features])
+        log.info(f"SDS edit: data-parallel over {mesh.size} devices")
 
     data_mode = uncoupled_mode or data_pose_mode
     sw_data_mode = use_shear_warp and data_mode
@@ -487,22 +564,23 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
         def multi_step_fn(k: int):  # K steps a call; the last call may be shorter
             return make_sds_train_multi_step(
                 sd, render_config, optimizer, camera_intrinsics, k, use_shear_warp=use_shear_warp,
-                sw_base_hw=base_hw, lr_schedule=schedule, do_sds=do_sds, **weights,
+                sw_base_hw=base_hw, lr_schedule=schedule, mesh=mesh, do_sds=do_sds, **weights,
             )
 
         text_by_dir = sds_loss_wrapper.stacked_encodings()
     elif sw_data_mode:
         step_fn = make_sds_train_step_shearwarp_data(
             sd, render_config, optimizer, base_hw, batch_size_in_images,
-            do_sds=do_sds, lr_schedule=schedule, **modes, **weights,
+            do_sds=do_sds, lr_schedule=schedule, mesh=mesh, **modes, **weights,
         )
     elif use_shear_warp:
         step_fn = make_sds_train_step_shearwarp(
-            sd, render_config, optimizer, base_hw, schedule, do_sds=do_sds, **weights
+            sd, render_config, optimizer, base_hw, schedule, mesh, do_sds=do_sds, **weights
         )
     else:
         step_fn = make_sds_train_step(
-            sd, render_config, optimizer, image_dims, do_sds=do_sds, lr_schedule=schedule, **modes, **weights
+            sd, render_config, optimizer, image_dims, do_sds=do_sds, lr_schedule=schedule, mesh=mesh, **modes,
+            **weights,
         )
 
     rng = np.random.default_rng(seed)
@@ -545,18 +623,19 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
 
             if render_feedback_pose is not None:
                 feedback_pose = render_feedback_pose
-            elif fused_random:  # the poses were drawn in the multi-step: draw one here
+            elif fused_random:  # the poses were drawn in the multi-step: draw one here (every rank)
                 feedback_pose = get_random_pose(HEMISPHERICAL_RADIUS_CONSTANT, rng)[0]
             else:
                 feedback_pose = current_pose
-            visualize_sh_vox_grid_vol_mod_rendered_feedback(
-                frozen(), "sds", feedback_pose, camera_intrinsics, global_step, render_dir,
-                training_time=time_training, log_diffuse_rendered_version=apply_diffuse_render_regularization,
-                overridden_num_samples_per_ray=render_config.render_num_samples_per_ray,
-                use_shear_warp=use_shear_warp,
-            )
+            if writer:
+                visualize_sh_vox_grid_vol_mod_rendered_feedback(
+                    frozen(), "sds", feedback_pose, camera_intrinsics, global_step, render_dir,
+                    training_time=time_training, log_diffuse_rendered_version=apply_diffuse_render_regularization,
+                    overridden_num_samples_per_ray=render_config.render_num_samples_per_ray,
+                    use_shear_warp=use_shear_warp,
+                )
         # the fused branch saves at its cadence and at the end only
-        if due(save_freq) or (first and cadence == 1) or last_iter:
+        if (due(save_freq) or (first and cadence == 1) or last_iter) and writer:
             frozen().save(model_dir / f"model_iter_{global_step}.pth", extra_info=extra_info)
 
     def new_frame():
@@ -617,7 +696,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images_and_sds(
 
     sds_vol_mod.grid = frozen().grid
     sds_vol_mod.extra_info.update(extra_info)
-    sds_vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
+    if writer:
+        sds_vol_mod.save(model_dir / "model_final.pth", extra_info=extra_info)
     log.info(
         f"Edit training complete; actual training time: {timedelta(seconds=time_training)}",
         extra={"time_training": time_training, "num_iterations": num_iterations},
