@@ -112,6 +112,33 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      flash and compositing launches; then the recon CLI with --multihost
      True --num_devices 1 (one stage of 3 iterations), its files and its
      model_final.pth read back;
+ 14b. bf16-mesh-route: the bf16 table's mesh route (the f32 table cast in
+     each rank's row resample, an f32 gradient share), which world size 1
+     never takes: the row resample at the recon render's shapes against the
+     CPU, then the 160^3 / 768^2 recon render's forward and backward through
+     two ranks' shares in turn on the card against the one-cast route: ms,
+     memory, each gradient's distance from the f32-table gradient;
+ 14e. eval-cli: the evaluation CLI on a result tree (one scene: inputs,
+     recon and two prompt folders of 4 exact 400^2 frames each, through the
+     compositing kernel) with a random-weight full-width Inception3 and, where
+     transformers imports, a tiny random CLIP: on the card (TF32 off in the
+     embedders) and, in a process beside it, with --device cpu on a copy of
+     the tree: the CSV layout equal, PSNR equal as text, FID within
+     EVAL_FID_REL_TOL; the embedder's images a second;
+ 14i. import-reference: the reference-checkpoint importer on a
+     reference-style pickle of a 160^3 grid (stub thre3d_atom classes, an
+     attn channel, camera bounds and intrinsics), read back onto the card
+     bitwise, one 400^2 exact frame through the compositing kernel;
+ 14o. oracle-edit: the oracle SDS edit demo at 160^3 / 256^2 base, 300
+     iterations (colour distance to the target at least halved, density
+     correlation > 0.9), ms a step, the device's busy share (torch.profiler);
+ 14l. oracle-local: the local oracle demo at 160^3 / 256^2, 300 + 300
+     iterations, the graph cut and merge (body restored, IoU > 0.5, body
+     mislabel < 0.2), ms a step of each stage, the cut's seconds;
+ 14q. quality-recon: the quality tool's 4-stage ladder to 160^3 (128^2
+     images, 16 views, coarse stages on the CPU, the last on the card with
+     the compositing kernel; 75 iterations a stage, cut from 150), the
+     held-out views through the exact renderer above 25 dB;
  15. shape-sweep: the compositing kernel against its plain version at every
      [N, S] it launched in this run that phase 3 did not check;
  16. the `kernels` JSON line, the card line, and the final JSON line.
@@ -144,7 +171,9 @@ from PIL import Image
 from voxe_tpu_torch.grid import feature_voxels as fvg
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
+from voxe_tpu_torch.cli import calculate_metrics as calc_metrics_cli
 from voxe_tpu_torch.cli import edit_pretrained_relu_field as edit_cli
+from voxe_tpu_torch.cli import import_reference_checkpoint as import_cli
 from voxe_tpu_torch.cli import refine_edited_relu_field as refine_cli
 from voxe_tpu_torch.cli import render_sh_based_voxel_grid as render_cli
 from voxe_tpu_torch.cli import render_sh_based_voxel_grid_attn as render_attn_cli
@@ -152,7 +181,7 @@ from voxe_tpu_torch.cli import segment_attn_relu_field as segment_cli
 from voxe_tpu_torch.cli import train_sh_based_voxel_grid_with_posed_images as recon_cli
 from voxe_tpu_torch.cli import validate_sd_weights as validate_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
-from voxe_tpu_torch.data.synthetic import generate_synthetic_scene
+from voxe_tpu_torch.data.synthetic import generate_synthetic_scene, make_demo_grid
 from voxe_tpu_torch.models.lpips import build_vgg16_features
 from voxe_tpu_torch.models.sd import cross_attn
 from voxe_tpu_torch.models.sd.controllers import AttentionRefine
@@ -174,8 +203,13 @@ from voxe_tpu_torch.train import grid_refine
 from voxe_tpu_torch.train import sds as train_sds
 from voxe_tpu_torch.train.checkpointing import read_training_state
 from voxe_tpu_torch.train.losses import density_correlation_loss
+from voxe_tpu_torch.tools import demo_oracle_edit as demo_edit_tool
+from voxe_tpu_torch.tools import demo_oracle_local_edit as demo_local_tool
+from voxe_tpu_torch.tools import quality_run_shearwarp as quality_tool
+from voxe_tpu_torch.tools.oracle import render_frame
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, pose_spherical
+from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid
 from voxe_tpu_torch.viz.animations import render_camera_path_for_volumetric_model
 from voxe_tpu_torch.viz.video import read_mjpeg_avi
@@ -744,8 +778,8 @@ def phase_small_check_recon(dev) -> None:
 
 
 def phase_recon_main(dev, workdir: Path) -> tuple:
-    """The recon main path at full width; returns its composite launches and
-    the trained state (grid, optimizer, config, base targets) that the
+    """The recon main path at full width; returns its (flash, compositing)
+    launches and the trained state (grid, optimizer, config, base targets) that the
     recon-kstep phase continues from."""
     t0 = time.perf_counter()
     scene = workdir / "scene"
@@ -810,7 +844,7 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
         chunk=rcfg.parallel_rays_chunk_size)
     if eval_launches != 5 * len(test) or not np.isfinite(metrics["psnr"]):
         raise AssertionError(f"held-out render: {eval_launches} launches for {len(test)} images, want 5 each")
-    total_launches = comp.LAUNCHES
+    total_launches = fa.LAUNCHES, comp.LAUNCHES
     recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw)
     profile_call(lambda: step(grid, targets, masks, poses, 0), 1, ms_step)
     context = dict(grid=grid, opt=opt, rcfg=rcfg, targets=targets, masks=masks, poses=poses, base_hw=base_hw,
@@ -821,11 +855,12 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
 RECON_K, RECON_K_ROUNDS = 10, 2
 
 
-def phase_recon_kstep(ctx: dict) -> int:
+def phase_recon_kstep(ctx: dict) -> tuple:
     """The recon main path's configuration at K = 10 steps a call against
     K = 1, as the trainer runs them: each call draws its image indices on
     the host and ends in a loss read (the summary's sync). Two rounds, each
-    one K = 10 call and ten K = 1 calls; returns the compositing launches."""
+    one K = 10 call and ten K = 1 calls; returns the (flash, compositing)
+    launches."""
     grid, opt = ctx["grid"], ctx["opt"]
     args = (ctx["targets"], ctx["masks"], ctx["poses"])
     schedule = train_recon.exponential_decay_staircase(0.03, 400, 0.1)
@@ -853,7 +888,7 @@ def phase_recon_kstep(ctx: dict) -> int:
         losses_finite=bool(np.isfinite(losses).all()))
     if launches != 2 * steps or flash != 0 or not np.isfinite(losses).all():
         raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 2 a step")
-    return launches
+    return flash, launches
 
 
 def recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw) -> None:
@@ -925,12 +960,12 @@ def write_random_lpips_weights(root: Path) -> Path:
     return root
 
 
-def phase_recon_cli(workdir: Path) -> int:
+def phase_recon_cli(workdir: Path) -> tuple:
     """The recon CLI module end to end at its default flags: 4 stages (20^3
     .. 160^3 grids on 50^2 .. 400^2 images) of a few shear-warp iterations
     with the fused kernel, the camera rays, feedback and held-out tests (with
     LPIPS on seeded random weights through $VOXE_LPIPS_WEIGHTS_DIR), ending
-    in model_final.pth; returns its compositing launches."""
+    in model_final.pth; returns its (flash, compositing) launches."""
     out = workdir / "cli_out"
     lpips_dir = write_random_lpips_weights(workdir / "lpips")
     t0 = time.perf_counter()
@@ -976,7 +1011,7 @@ def phase_recon_cli(workdir: Path) -> int:
         raise AssertionError(f"recon CLI: held-out tests {tests}")
     if launches != want or flash != 0:
         raise AssertionError(f"recon CLI: {launches} compositing launches, want {want}; {flash} flash")
-    return launches
+    return flash, launches
 
 
 RESUME_ITERS, RESUME_MORE = 12, 22  # 10 + 2 steps a stage; the resumed run adds a call of 10 and one of 1
@@ -987,13 +1022,13 @@ def heldout_launches(workdir: Path, tests: int) -> int:
     return -(-SCENE**2 // 32768) * len(list((workdir / "scene" / "test").glob("*.png"))) * tests
 
 
-def phase_recon_cli_resume(workdir: Path) -> int:
+def phase_recon_cli_resume(workdir: Path) -> tuple:
     """The recon CLI at its defaults with --steps_per_call 10 (4 stages of
     12 iterations: a call of 10 and one of 2 a stage), then --resume from
     the training_state_latest.pth it wrote with 22 iterations a stage: the
     ladder fast-forwards to stage 4 and continues after the saved iteration
     (the first iteration of the saved call, as the JAX trainer records it).
-    Returns both runs' compositing launches."""
+    Returns both runs' (flash, compositing) launches."""
     out, resumed = workdir / "cli_k10", workdir / "cli_k10_resumed"
     base = ["-d", str(workdir / "scene"), "--num_stages", str(RECON_CLI_STAGES), "--steps_per_call", "10",
             "--use_fused_kernel", "True", "--device", "cuda"]
@@ -1036,13 +1071,13 @@ def phase_recon_cli_resume(workdir: Path) -> int:
     model, _ = load_volumetric_model(resumed / "saved_models" / "model_final.pth", device="cuda")
     if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all():
         raise AssertionError("recon-cli-resume: the resumed model_final.pth holds no finite 160^3 grid")
-    return launches
+    return flash, launches
 
 
 STREAM_ITERS = 12
 
 
-def phase_recon_streaming(dev, workdir: Path) -> int:
+def phase_recon_streaming(dev, workdir: Path) -> tuple:
     """One stage of the 400^2 scene through the trainer on the exact route
     at the recon CLI's final-stage settings (160^3, 32,768 rays of 256
     samples a step): RAM-backed, then memmap-backed (`cache_backing=
@@ -1051,7 +1086,7 @@ def phase_recon_streaming(dev, workdir: Path) -> int:
     as the JAX step does (its render takes no fused-kernel branch), so the
     compositing kernel launches 0 times here. ms/step is each stage's synced
     training time over its steps, the first step's warm-up included.
-    Returns the compositing launches of the three runs."""
+    Returns the (flash, compositing) launches of the three runs."""
     scene = workdir / "scene"
     runs = {}
     reset_counts()  # counts from here to the end of the three runs
@@ -1073,7 +1108,7 @@ def phase_recon_streaming(dev, workdir: Path) -> int:
     for name, r in runs.items():
         if r["streaming"] != (name == "memmap") or r["composite_launches"] != 0 or not r["finite"]:
             raise AssertionError(f"recon-streaming: {name} {r}")
-    return comp.LAUNCHES
+    return fa.LAUNCHES, comp.LAUNCHES
 
 
 def frame_stats(records) -> dict:
@@ -1093,10 +1128,10 @@ def check_video(path: Path, frames: int, side: int) -> None:
 TURNTABLE_FRAMES = 179  # the CLI's default --num_frames 180 (the last pose dropped)
 
 
-def phase_render_cli(workdir: Path, shear_warp: bool) -> int:
+def phase_render_cli(workdir: Path, shear_warp: bool) -> tuple:
     """The render CLI on the recon CLI's model_final.pth at its full width
     (800^2, 512 samples), cut in depth to a few turntable frames; returns
-    its compositing launches."""
+    its (flash, compositing) launches."""
     name = "render-cli-shear-warp" if shear_warp else "render-cli-exact"
     num_frames = 37 if shear_warp else 9
     out = workdir / name
@@ -1128,7 +1163,7 @@ def phase_render_cli(workdir: Path, shear_warp: bool) -> int:
     profile_call(lambda: render_camera_path_for_volumetric_model(
         model, poses[:1], intr, config.overridden_num_samples_per_ray, config.render_scale_factor,
         use_shear_warp=shear_warp), 1, stats["ms_per_frame_median"])
-    return launches
+    return flash, launches
 
 
 def phase_render_attn_cli(workdir: Path, snapshot14: Path) -> dict:
@@ -1627,7 +1662,7 @@ def phase_p2p_hook(dev, snapshot: Path) -> tuple:
 UNET_GRAD_TOL = 5e-2  # see phase_unet_grad
 
 
-def phase_unet_grad(dev, snapshot: Path) -> int:
+def phase_unet_grad(dev, snapshot: Path) -> tuple:
     """The SD 2.0 UNet's own gradient at its published widths (random
     weights, drawn biases, bf16): latents [2, 4, 64, 64] (a 512^2 image, CFG
     batch 2), text context [2, 77, 1024], t 500, a fixed random cotangent.
@@ -1638,8 +1673,8 @@ def phase_unet_grad(dev, snapshot: Path) -> int:
     finally) at UNET_GRAD_TOL of max|ref|: both sides are bf16, and their
     attention roundings differ at 5 layers forward and backward and carry
     through the rest of the UNet's backward (the forward alone reads 1.4e-2
-    bf16 flash against f32 probs, PERF.md, PR 8). Returns the backward
-    launches of one pass."""
+    bf16 flash against f32 probs, PERF.md §6). Returns the forward and
+    backward flash launches of one pass."""
     sd = StableDiffusion(SD_VERSION, weights_dir=snapshot, device=dev)
     text = sd.get_text_embeds("a dog wearing a party hat").to(sd.unet_dtype)
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1706,7 +1741,7 @@ def phase_unet_grad(dev, snapshot: Path) -> int:
         raise AssertionError(f"unet-grad: flash-route gradients against SDPA's {rel}, finite {finite}")
     del sd
     torch.cuda.empty_cache()
-    return bwd
+    return flash, bwd
 
 
 FEATURES = 12  # DVGO's rgbnet_dim: the feature channels the grid stores
@@ -1714,14 +1749,15 @@ FEATURE_LR_GRID, FEATURE_LR_HEADS = 0.03, 1e-3  # the recon CLI's grid lr; DVGO'
 FEATURE_STEPS = 8
 
 
-def phase_feature_grid(dev, workdir: Path) -> int:
+def phase_feature_grid(dev, workdir: Path) -> tuple:
     """The feature-voxel model at the recon path's size: a 160^3 grid of 12
     features with the reference's 64-wide, 4-deep rgbnet (about 0.2 GB of
     grid). A 400^2 image of the synthetic scene at 512 samples in the exact
     renderer's 32,768-ray chunks; then training steps at the recon CLI's ray
     batch (32,768 rays x 256 samples, jittered): L1 against the scene's
-    pixels, Adam on the grid and the heads. Returns its compositing
-    launches (0: the feature render composites in plain PyTorch, as in JAX)."""
+    pixels, Adam on the grid and the heads. Returns its (flash, compositing)
+    launches (compositing 0: the feature render composites in plain PyTorch,
+    as in JAX)."""
     scene = workdir / "scene"
     train = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True, device=dev)
     images, poses = train.device_arrays()
@@ -1787,7 +1823,7 @@ def phase_feature_grid(dev, workdir: Path) -> int:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     train_peak = torch.cuda.max_memory_allocated() / 2**30
-    composite = comp.LAUNCHES
+    composite, flash = comp.LAUNCHES, fa.LAUNCHES
     moved = float((grid.rgbnet[0][0].detach() - head0).abs().max())
     log("feature-grid", grid=GRID_RES, features=FEATURES, rgbnet=f"{cfg.rgbnet_width}x{cfg.rgbnet_depth}",
         grid_gb=grid_gb, image=f"{intr.height}x{intr.width}", samples=512, chunk=chunk,
@@ -1795,24 +1831,24 @@ def phase_feature_grid(dev, workdir: Path) -> int:
         render_peak_mem_gib=render_peak, rays_per_step=32768, train_samples=256,
         ms_per_step=float(np.median(step_ms)), ms_per_step_range=[min(step_ms), max(step_ms)],
         train_peak_mem_gib=train_peak, losses=losses, rgbnet_moved=moved, composite_launches=composite,
-        image_mean=float(img.mean()))
+        flash_launches=flash, image_mean=float(img.mean()))
     if not (torch.isfinite(img).all() and all(np.isfinite(losses)) and moved > 0.0):
         raise AssertionError(f"feature-grid: image finite {bool(torch.isfinite(img).all())}, losses {losses}")
     del grid, opt
     torch.cuda.empty_cache()
-    return composite
+    return flash, composite
 
 
 GRID_REFINE_ITERS = 4
 
 
-def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> int:
+def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> tuple:
     """The legacy grid_refine loop on the 160^3 grids the CLI phases wrote
     (the recon CLI's model_final.pth as the reference, the edit CLI's as the
     SDS model, the refine CLI's attention grids), 384^2 base, SD 1.4 from
     the snapshot: 4 iterations with the attention re-learn, a graph cut and
-    merge at iterations 1 and 4, feedback renders. Returns its compositing
-    launches."""
+    merge at iterations 1 and 4, feedback renders. Returns its (flash,
+    compositing) launches."""
     saved = workdir / "refine-cli" / "saved_models"
     models = {role: load_volumetric_model(path, device=dev)[0] for role, path in (
         ("sds", workdir / "edit-cli" / "saved_models" / "model_final.pth"),
@@ -1862,7 +1898,7 @@ def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> int:
         raise AssertionError(f"grid-refine: final SDS grid {final.grid.grid_dims}, keep {keep}, moved {moved}")
     del sd, models
     torch.cuda.empty_cache()
-    return composite
+    return flash, composite
 
 PAR_RECON_K, PAR_SDS_K, PAR_ROUNDS = 10, 3, 2
 PAR_RECON_TOL = 1e-6  # of max|grid|: at world size 1 the sharded step is the unsharded one (bitwise expected)
@@ -2036,6 +2072,413 @@ def phase_parallel_nccl(dev, workdir: Path) -> tuple:
             os.environ.pop(k, None)
 
 
+EVAL_SIDE, EVAL_FRAMES, EVAL_PROMPTS = SCENE, 4, ("golden_dog", "blue_dog")
+# FID on the card (TF32 off) against --device cpu, relative: 4.7e-6 read on
+# "NVIDIA H100 80GB HBM3, 700.00 W" (4 frames a folder: rank-3 covariances,
+# whose sqrtm amplifies the features' f32 differences); held at 1e-4
+EVAL_FID_REL_TOL = 1e-4
+EVAL_CLIP_TOL = 1e-5  # CLIP columns card against cpu, absolute (cosine similarities)
+
+
+
+MESH_ROUTE_RANKS, MESH_ROUTE_ITERS = 2, 5
+MESH_ROUTE_TOL = 1e-5  # of max|grad|: one f32 contraction, the card's (no TF32) against the CPU's
+
+
+def phase_bf16_mesh_route(dev) -> None:
+    """The bf16 table's mesh route, which one card never takes (world size
+    1 keeps the one cast): the table stays f32 (`_table`) and each rank's
+    row resample casts it (`_BF16RowResample`), whose backward contracts the
+    rank's rows in f32. (1) `_resample_rows` at the recon render's shapes
+    (one rank's 384 of the 768 base rows, 160 slices of a 160^3 grid of 4
+    channels, hat weights of two taps a row) on the card against the same
+    product in f32 on the CPU: the bf16 forward within one bf16 ulp (two
+    taps sum exactly in f32, so only the rounding differs), the f32
+    gradient at MESH_ROUTE_TOL of max.
+    (2) A weighted sum of the recon render (160^3, 768^2 base, the fused
+    compositing kernel), forward and backward: MESH_ROUTE_RANKS ranks'
+    shares in turn on the card (Mesh records without a group: the render
+    issues no collective, and autograd sums the shares in f32 as the
+    all-reduce does) against the one-cast route without a mesh: ms and peak
+    memory of each, each gradient's distance from the f32-table gradient,
+    and the mesh route's gradient held at MESH_ROUTE_TOL of max against the
+    one-process gradient with every row through `_BF16RowResample` (the
+    unrounded sum: `_table` swapped for the identity, restored after)."""
+    from voxe_tpu_torch.parallel.mesh import Mesh, shard_axis
+    from voxe_tpu_torch.render import shearwarp as sw
+
+    half = RECON_BASE // MESH_ROUTE_RANKS
+    g = torch.Generator().manual_seed(21)
+    src = torch.rand((GRID_RES, half), generator=g) * GRID_RES - 0.5  # a slice's source rows, as the render's
+    wa = sw._interp_matrices(src, GRID_RES).to(torch.bfloat16)  # hat weights: two taps a row
+    table = torch.rand((GRID_RES, GRID_RES, GRID_RES * 4), generator=g) * 2 - 1
+    cot = torch.randn((GRID_RES, half, GRID_RES * 4), generator=g).to(torch.bfloat16)
+    x = table.to(dev).requires_grad_(True)
+    out = sw._resample_rows(wa.to(dev), x)
+    out.backward(cot.to(dev))
+    want = torch.bmm(wa.float(), table.to(torch.bfloat16).float())
+    want_grad = torch.bmm(wa.float().transpose(1, 2), cot.float())
+    fwd_ok = out.dtype == torch.bfloat16 and within_bf16_ulp(out.cpu(), want, 0.0)
+    grad_err = float((x.grad.cpu() - want_grad).abs().max() / want_grad.abs().max())
+
+    grid = make_recon_grid(GRID_RES, dev)
+    pose, base_hw = pose_spherical(30.0, 40.0, 4.0), (RECON_BASE, RECON_BASE)
+    weights = torch.randn((RECON_BASE, RECON_BASE, 3), generator=torch.Generator(device=dev).manual_seed(3),
+                          device=dev)
+    meshes = [Mesh(group=None, rank=r, size=MESH_ROUTE_RANKS, device=dev) for r in range(MESH_ROUTE_RANKS)]
+
+    def grad(gather_dtype, sharded):
+        d, f = grid.densities.clone().requires_grad_(True), grid.features.clone().requires_grad_(True)
+        gr = grid.replace(densities=d, features=f, config=dataclasses.replace(grid.config, gather_dtype=gather_dtype))
+        for mesh in meshes if sharded else [None]:
+            colour = render_shear_warp(gr, pose, RECON_RCFG, base_hw, mesh=mesh)[0].colour
+            w = weights if mesh is None else shard_axis(mesh, weights, 0)
+            (colour * w.reshape(-1, 3)).sum().backward()
+        return torch.cat([d.grad.reshape(-1), f.grad.reshape(-1)])
+
+    def dist(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    f32_table = grad("float32", False)
+    table_fn = sw._table
+    sw._table = lambda unified, gather_dtype, mesh: unified  # one process, every row through _BF16RowResample
+    try:
+        unrounded = grad("bfloat16", False)
+    finally:
+        sw._table = table_fn
+    routes = {}
+    for name, sharded in (("mesh_route", True), ("one_cast", False), ("mesh_route_again", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = grad("bfloat16", sharded)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = time_ms(lambda: grad("bfloat16", sharded), iters=MESH_ROUTE_ITERS, warmup=1)
+        routes[name] = dict(ms_fwd_bwd=ms, transient_gib=peak, finite=bool(torch.isfinite(got).all()),
+                            dist_to_f32_table=dist(got, f32_table), dist_to_unrounded=dist(got, unrounded))
+    log("bf16-mesh-route", ranks=MESH_ROUTE_RANKS, grid=GRID_RES, base=RECON_BASE,
+        resample_shape=[list(wa.shape), list(table.shape)], resample_fwd_within_bf16_ulp=fwd_ok,
+        resample_grad_rel_err=grad_err, tol=MESH_ROUTE_TOL, unrounded_dist_to_f32_table=dist(unrounded, f32_table),
+        routes=json.dumps(routes).replace(" ", ""), card=card_line().replace(" ", "_"))
+    if not (fwd_ok and x.grad.dtype == torch.float32 and grad_err <= MESH_ROUTE_TOL):
+        raise AssertionError(f"bf16-mesh-route: resample forward {fwd_ok}, gradient {x.grad.dtype} {grad_err}")
+    if not (all(r["finite"] for r in routes.values()) and routes["mesh_route"]["dist_to_unrounded"]
+            <= MESH_ROUTE_TOL):
+        raise AssertionError(f"bf16-mesh-route: {routes}")
+
+def _logit(rgb) -> torch.Tensor:
+    p = torch.tensor(rgb, dtype=torch.float32)
+    return torch.log(p / (1.0 - p))
+
+
+def write_eval_tree(root: Path, dev) -> int:
+    """One scene of the evaluation CLI's layout: inputs/ (the 160^3 demo
+    grid), recon/ (its features perturbed, the reference's "color_" file
+    prefix), two prompt folders (recoloured grids), EVAL_FRAMES 400^2 exact
+    frames each through the compositing kernel, and the prompt.txt files.
+    Returns the compositing launches."""
+    from voxe_tpu_torch.tools.oracle import demo_render_config
+
+    grid = make_demo_grid(GRID_RES, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dense = (grid.densities > 0.0).float()
+    grids = {
+        "inputs": (grid, ""),
+        "recon": (grid.replace(features=grid.features + 0.3 * torch.randn(grid.features.shape, generator=g,
+                                                                            device=dev)), "a render of a dog"),
+        EVAL_PROMPTS[0]: (grid.replace(features=grid.features * (1 - dense) + dense * _logit((0.95, 0.75, 0.1)).to(
+            dev)), "a render of a golden dog"),
+        EVAL_PROMPTS[1]: (grid.replace(features=grid.features * (1 - dense) + dense * _logit((0.1, 0.2, 0.9)).to(
+            dev)), "a render of a blue dog"),
+    }
+    rcfg, intr = demo_render_config(), CameraIntrinsics(EVAL_SIDE, EVAL_SIDE, float(EVAL_SIDE))
+    launches = comp.LAUNCHES
+    for folder, (gr, prompt) in grids.items():
+        d = root / folder
+        d.mkdir(parents=True)
+        prefix = "color_" if folder == "recon" else ""
+        for i, yaw in enumerate(np.linspace(0.0, 360.0, EVAL_FRAMES + 1)[:-1]):
+            Image.fromarray(render_frame(gr, rcfg, intr, float(yaw))[0]).save(d / f"{prefix}frame_{i}.png")
+        if prompt:
+            (d / "prompt.txt").write_text(prompt + "\n")
+    torch.cuda.synchronize()
+    return comp.LAUNCHES - launches
+
+
+def write_tiny_clip(root: Path) -> Path:
+    """A tiny random-weight transformers CLIP snapshot (model, processor and
+    a byte-level BPE vocab), as tests/test_evaluation.py builds it."""
+    from transformers import (CLIPConfig, CLIPImageProcessor, CLIPModel, CLIPProcessor, CLIPTextConfig,
+                              CLIPTokenizer, CLIPVisionConfig)
+
+    root.mkdir(parents=True, exist_ok=True)
+    text_cfg = CLIPTextConfig(vocab_size=514, hidden_size=32, intermediate_size=37, num_hidden_layers=2,
+                              num_attention_heads=4, max_position_embeddings=77)
+    vision_cfg = CLIPVisionConfig(hidden_size=32, intermediate_size=37, num_hidden_layers=2, num_attention_heads=4,
+                                  image_size=224, patch_size=32)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        CLIPModel(CLIPConfig(text_config=text_cfg.to_dict(), vision_config=vision_cfg.to_dict(),
+                             projection_dim=16)).save_pretrained(root)
+    byte_tokens = list(_bytes_to_unicode().values())
+    vocab = {tok: i for i, tok in enumerate(byte_tokens + [t + "</w>" for t in byte_tokens])}
+    vocab.update({"<|startoftext|>": len(vocab), "<|endoftext|>": len(vocab) + 1})
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    (root / "merges.txt").write_text("#version: 0.2\n")
+    CLIPProcessor(CLIPImageProcessor(), CLIPTokenizer(str(root / "vocab.json"), str(root / "merges.txt"))
+                  ).save_pretrained(root)
+    return root
+
+
+def _importable(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+def phase_eval_cli(dev, workdir: Path) -> tuple:
+    """The evaluation CLI on a result tree of 400^2 frames: a random-weight
+    full-width Inception3 (1000 classes, 2048-d pool3) and, where
+    transformers imports, a tiny random CLIP; the CLI on the card, then with
+    --device cpu on a copy of the tree. PSNR equal as text, FID within
+    EVAL_FID_REL_TOL relative, CLIP within EVAL_CLIP_TOL, the same CSV
+    layout; the Inception embedder's images a second on the card. Returns
+    the (flash, compositing) launches of the tree's frames and the card's
+    CLI run."""
+    import shutil
+
+    from voxe_tpu_torch.evaluation.inception import Inception3
+    from voxe_tpu_torch.evaluation.metrics_lib import InceptionEmbedder, get_images
+
+    root = workdir / "eval"
+    reset_counts()  # counts from here to the end of the card's CLI run
+    launches = write_eval_tree(root / "results_card" / "dog2", dev)
+    shutil.copytree(root / "results_card", root / "results_cpu")
+    inception = root / "inception"
+    inception.mkdir()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = Inception3(num_classes=1000)
+        for m in model.modules():  # He init: torch's default lets the activations vanish over 94 convs
+            if isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+        torch.save(model.state_dict(), inception / "inception_v3.pth")
+    has_transformers, has_pandas = _importable("transformers"), _importable("pandas")
+    flags = ["--inception_model_dir", str(inception)]
+    if has_transformers:
+        flags += ["--clip_model_dir", str(write_tiny_clip(root / "clip"))]
+    # the --device cpu run in a process of its own beside the card's: both
+    # spend most of their time in scipy's sqrtm on the host
+    t0 = time.perf_counter()
+    with open(root / "cpu_run.log", "w") as cpu_log:
+        cpu_run = subprocess.Popen([sys.executable, "-m", "voxe_tpu_torch.cli.calculate_metrics", "-d",
+                                    str(root / "results_cpu"), *flags, "--device", "cpu"], stdout=cpu_log,
+                                   stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+    try:
+        logged(calc_metrics_cli.main, ["-d", str(root / "results_card"), *flags, "--device", str(dev)])
+        seconds = {"card": time.perf_counter() - t0}
+        counts = fa.LAUNCHES, comp.LAUNCHES
+        code = cpu_run.wait(timeout=600)
+    finally:
+        if cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    seconds["cpu"] = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"eval-cli: the --device cpu run exited {code}: {(root / 'cpu_run.log').read_text()[-2000:]}")
+    csvs = {d: (root / f"results_{d}" / "output_metrics.csv").read_text().splitlines() for d in ("card", "cpu")}
+    card, host = ([line.split(",") for line in csvs[d]] for d in ("card", "cpu"))
+    same_layout = len(card) == len(host) and all(len(a) == len(b) and a[0] == b[0] for a, b in zip(card, host)) \
+        and card[:2] == host[:2]
+    gaps = {}
+    for a, b in zip(card[2:], host[2:]):
+        if len(a) != 6:
+            continue
+        for col, x, y in zip(calc_metrics_cli.COLUMNS, a[1:], b[1:]):
+            if col == "PSNR recon":
+                gaps.setdefault(col, []).append(x == y)
+            elif x and y:
+                gap = abs(float(x) - float(y)) / (abs(float(y)) if col.startswith("FID") else 1.0)
+                gaps.setdefault(col, []).append(gap)
+    imgs = get_images(root / "results_card" / "dog2" / EVAL_PROMPTS[0]) * 8
+    embedder = InceptionEmbedder(inception, device=dev)
+    embedder.features(imgs[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embedder.features(imgs)
+    torch.cuda.synchronize()
+    per_s = len(imgs) / (time.perf_counter() - t0)
+    fid_gap = max(gaps.get("FID recon", [np.inf]) + gaps.get("FID input", [np.inf]))
+    clip_gap = max(gaps.get("text CLIP", [0.0]) + gaps.get("dir CLIP", [0.0]))
+    log("eval-cli", transformers=has_transformers, pandas=has_pandas, frames_per_folder=EVAL_FRAMES,
+        side=EVAL_SIDE, prompts=len(EVAL_PROMPTS), csv_lines=len(card), same_layout=same_layout,
+        psnr_equal=all(gaps.get("PSNR recon", [False])), fid_rel_gap=fid_gap, fid_rel_tol=EVAL_FID_REL_TOL,
+        clip_abs_gap=clip_gap, clip_tol=EVAL_CLIP_TOL, cli_s_card=seconds["card"], cli_s_cpu_beside_it=seconds["cpu"],
+        inception_images_per_s=per_s, composite_launches=counts[1], flash_launches=counts[0],
+        card=card_line().replace(" ", "_"))
+    print("[eval-cli-csv] " + json.dumps(csvs), flush=True)
+    if not (same_layout and len(gaps.get("PSNR recon", [])) == len(EVAL_PROMPTS) and all(gaps["PSNR recon"])):
+        raise AssertionError(f"eval-cli: card and CPU CSVs differ in layout or PSNR: {csvs}")
+    if not (fid_gap <= EVAL_FID_REL_TOL and clip_gap <= EVAL_CLIP_TOL and counts[1] == launches > 0):
+        raise AssertionError(f"eval-cli: FID gap {fid_gap}, CLIP gap {clip_gap}, launches {counts}, tree {launches}")
+    return counts
+
+
+def write_reference_pickle(path: Path, grid: VoxelGrid) -> dict:
+    """A reference Vox-E save-info dict (reference volumetric_model.py:85-99)
+    for `grid` with an attn channel, pickled while stub thre3d_atom modules
+    hold its NamedTuples and activation function. Returns the arrays."""
+    import types
+    from typing import NamedTuple
+
+    class VoxelSize(NamedTuple):
+        x_size: float
+        y_size: float
+        z_size: float
+
+    class VoxelGridLocation(NamedTuple):
+        x_coord: float
+        y_coord: float
+        z_coord: float
+
+    class CameraBounds(NamedTuple):
+        near: float
+        far: float
+
+    class CameraIntrinsics(NamedTuple):
+        height: int
+        width: int
+        focal: float
+
+    def softplus(x):
+        return F.softplus(x)
+
+    modules = {name: types.ModuleType(name) for name in (
+        "thre3d_atom", "thre3d_atom.thre3d_reprs", "thre3d_atom.thre3d_reprs.voxels", "thre3d_atom.utils",
+        "thre3d_atom.utils.imaging_utils")}
+    for module, objs in (("thre3d_atom.thre3d_reprs.voxels", (VoxelSize, VoxelGridLocation, softplus)),
+                         ("thre3d_atom.utils.imaging_utils", (CameraBounds, CameraIntrinsics))):
+        for obj in objs:
+            obj.__module__, obj.__qualname__ = module, obj.__name__
+            setattr(modules[module], obj.__name__, obj)
+    arrays = {"_densities": grid.densities.cpu(), "_features": grid.features.cpu(),
+              "attn": torch.where(grid.densities.cpu() > 0.0, 1.0, -20.0)}
+    res = grid.grid_dims[0]
+    payload = {"thre3d_repr": {"state_dict": arrays, "config_dict": {
+        "grid_dims": (res,) * 3, "feature_dims": 3, "voxel_size": VoxelSize(*grid.config.voxel_size),
+        "grid_location": VoxelGridLocation(0.0, 0.0, 0.0), "density_preactivation": torch.abs,
+        "density_postactivation": softplus, "expected_density_scale": 1.0}},
+        "extra_info": {"camera_bounds": CameraBounds(2.0, 6.0), "camera_intrinsics": CameraIntrinsics(
+            SCENE, SCENE, float(SCENE)), "hemispherical_radius": 4.0311}}
+    sys.modules.update(modules)
+    try:
+        torch.save(payload, path)
+    finally:
+        for name in modules:
+            del sys.modules[name]
+    return {k: v.numpy() for k, v in arrays.items()}
+
+
+def phase_import_reference(dev, workdir: Path) -> tuple:
+    """The reference-checkpoint importer on a reference-style pickle of the
+    160^3 demo grid (SH degree 0, an attn channel, camera bounds and
+    intrinsics in its extra_info): the import on the host, the checkpoint
+    read back onto the card (arrays bitwise), one 400^2 frame of it through
+    the exact renderer and the compositing kernel. Returns the (flash,
+    compositing) launches."""
+    reset_counts()  # counts from here to the end of the frame
+    src = write_reference_pickle(workdir / "reference.pth", make_demo_grid(GRID_RES, device="cpu"))
+    t0 = time.perf_counter()
+    logged(import_cli.main, ["-i", str(workdir / "reference.pth"), "-o", str(workdir / "imported.pth")])
+    import_s = time.perf_counter() - t0
+    model, extra = load_volumetric_model(workdir / "imported.pth", device=dev)
+    same = {name: bool(np.array_equal(getattr(model.grid, name).cpu().numpy(), src[key]))
+            for name, key in (("densities", "_densities"), ("features", "_features"), ("attn", "attn"))}
+    intr = CameraIntrinsics(*[int(v) for v in extra["camera_intrinsics"][:2]], float(extra["camera_intrinsics"][2]))
+    out = model.render(intr, pose_spherical(40.0, 30.0, extra["hemispherical_radius"]), use_fused_kernel=True)
+    torch.cuda.synchronize()
+    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    acc = out.extra[EXTRA_ACCUMULATED_WEIGHTS]
+    log("import-reference", grid=list(model.grid.grid_dims), import_s=import_s, bitwise=same, extra_info=extra,
+        frame=list(out.colour.shape), colour_mean=float(out.colour.mean()),
+        object_pixels=int((acc > 0.5).sum()), composite_launches=launches, flash_launches=flash)
+    if not (all(same.values()) and out.colour.shape == (SCENE, SCENE, 3) and torch.isfinite(out.colour).all()
+            and launches > 0):
+        raise AssertionError(f"import-reference: bitwise {same}, frame {tuple(out.colour.shape)}, {launches} launches")
+    return flash, launches
+
+
+ORACLE_RES, ORACLE_BASE, ORACLE_ITERS = 160, 256, 300  # the README's production runs of both demos
+ORACLE_PROFILE_STEPS = 10
+
+
+def phase_oracle_edit(dev, workdir: Path) -> tuple:
+    """demo_oracle_edit at 160^3 / 256^2 base, 300 iterations (its
+    production run): the colour distance to the target at least halved,
+    density correlation > 0.9; ms a step, then the device's busy share over
+    ORACLE_PROFILE_STEPS more steps under torch.profiler. Returns the demo's
+    (flash, compositing) launches (the compositing ones: its exact frames)."""
+    from voxe_tpu_torch.tools import oracle
+
+    reset_counts()
+    m, _ = logged(demo_edit_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--iters",
+                                        str(ORACLE_ITERS), "--out", str(workdir / "demo_oracle_160"), "--device",
+                                        str(dev)])
+    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    log("oracle-edit", **m, composite_launches=launches, flash_launches=flash, tpu_record_density_correlation=0.999,
+        card=card_line().replace(" ", "_"))
+    grid = make_demo_grid(ORACLE_RES, device=dev)
+    sds = oracle.MaskedOracleSDS(oracle.GOLDEN, device=dev)
+    profile_call(lambda: oracle.run_oracle_sds(grid, sds, oracle.demo_render_config(), (ORACLE_BASE,) * 2,
+                                               ORACLE_PROFILE_STEPS, 1), ORACLE_PROFILE_STEPS, m["ms_per_step"])
+    if not (m["colour_distance_after"] < 0.5 * m["colour_distance_before"] and m["density_correlation"] > 0.9
+            and launches > 0):
+        raise AssertionError(f"oracle-edit: {m}, {launches} launches")
+    return flash, launches
+
+
+def phase_oracle_local(dev, workdir: Path) -> tuple:
+    """demo_oracle_local_edit at its record's configuration (160^3, 256^2
+    base, 300 SDS + 300 refinement iterations): the JAX test's bounds (body
+    restored, IoU > 0.5, hat feature delta > 0.1, body mislabel < 0.2),
+    logged beside the TPU record. Returns the (flash, compositing) launches."""
+    reset_counts()
+    m, _ = logged(demo_local_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--sds_iters",
+                                         str(ORACLE_ITERS), "--refine_iters", str(ORACLE_ITERS), "--out",
+                                         str(workdir / "demo_oracle_local_160"), "--device", str(dev)])
+    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    log("oracle-local", **m, composite_launches=launches, flash_launches=flash, tpu_record=json.dumps(
+        dict(iou=0.871, body_restored=True, body_mislabel_frac=0.0, hat_feature_delta=3.45)).replace(" ", ""),
+        card=card_line().replace(" ", "_"))
+    if not (m["body_restored"] and m["iou"] > 0.5 and m["hat_feature_delta"] > 0.1 and m["body_mislabel_frac"] < 0.2
+            and launches > 0):
+        raise AssertionError(f"oracle-local: {m}, {launches} launches")
+    return flash, launches
+
+
+QUALITY_ITERS, QUALITY_RECORD_ITERS = 75, 150  # a stage: cut from the record's 150 to keep the script's time
+
+
+def phase_quality_recon(dev, workdir: Path) -> tuple:
+    """quality_run_shearwarp at the record's widths (160^3 grid, 128^2
+    images, 16 views, the 2x base), QUALITY_ITERS a stage (the record's
+    150 cut to half, logged): the coarse stages
+    on the CPU, the last on the card through the compositing kernel, then
+    the held-out and train views through the exact renderer. Held-out PSNR
+    finite and above 25 dB. Returns the (flash, compositing) launches."""
+    reset_counts()
+    result, _ = logged(quality_tool.main, ["--grid", str(GRID_RES), "--image", "128", "--views", "16", "--iters",
+                                           str(QUALITY_ITERS), "--out", str(workdir / "quality_sw"), "--device",
+                                           str(dev)])
+    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    log("quality-recon", **result, composite_launches=launches, flash_launches=flash,
+        record_iters_per_stage=QUALITY_RECORD_ITERS,
+        tpu_record_heldout_psnr=36.20, card=card_line().replace(" ", "_"))
+    if not (np.isfinite(result["heldout_psnr"]) and result["heldout_psnr"] > 25.0 and launches > 0):
+        raise AssertionError(f"quality-recon: {result}, {launches} launches")
+    return flash, launches
+
+
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
     libs = {"flash_attn_fwd": fa.build, "flash_attn_bwd": fa.build_bwd, "composite_fwd": comp.build}
@@ -2097,28 +2540,30 @@ def main() -> int:
     by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
         work = Path(tmp)
-        comp_row["launches"], recon_ctx = timed("recon-main-path", phase_recon_main, dev, work)
-        by_path["recon"] = {"flash_attn_fwd": 0, "composite_fwd": comp_row["launches"]}
-        by_path["recon-kstep"] = {"flash_attn_fwd": 0, "composite_fwd": timed("recon-kstep", phase_recon_kstep,
-                                                                              recon_ctx)}
+
+        def no_unet(name, fn, *args):  # a path without a UNet: the flash forward must not launch
+            flash, composite = timed(name, fn, *args)
+            if flash != 0:
+                raise AssertionError(f"{name}: the flash forward launched {flash} times on a path without a UNet")
+            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+
+        (flash, comp_row["launches"]), recon_ctx = timed("recon-main-path", phase_recon_main, dev, work)
+        by_path["recon"] = {"flash_attn_fwd": flash, "composite_fwd": comp_row["launches"]}
+        no_unet("recon-kstep", phase_recon_kstep, recon_ctx)
         del recon_ctx
-        by_path["recon-cli"] = {"flash_attn_fwd": 0, "composite_fwd": timed("recon-cli", phase_recon_cli, work)}
-        by_path["recon-cli-resume"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
-            "recon-cli-resume", phase_recon_cli_resume, work)}
-        by_path["recon-streaming"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
-            "recon-streaming", phase_recon_streaming, dev, work)}
+        no_unet("recon-cli", phase_recon_cli, work)
+        no_unet("recon-cli-resume", phase_recon_cli_resume, work)
+        no_unet("recon-streaming", phase_recon_streaming, dev, work)
         for name, shear_warp in (("render-cli-exact", False), ("render-cli-shear-warp", True)):
-            by_path[name] = {"flash_attn_fwd": 0, "composite_fwd": timed(name, phase_render_cli, work, shear_warp)}
-        by_path["feature-grid"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
-            "feature-grid", phase_feature_grid, dev, work)}
+            no_unet(name, phase_render_cli, work, shear_warp)
+        no_unet("feature-grid", phase_feature_grid, dev, work)
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
         for name, fn, args in (("sd-sample", phase_sd_sample, (dev, work, snapshot)),
                                ("p2p-hook", phase_p2p_hook, (dev, snapshot))):
             flash, composite = timed(name, fn, *args)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        bwd_row["launches"] = timed("unet-grad", phase_unet_grad, dev, snapshot)
-        by_path["unet-grad"] = {"flash_attn_fwd": FLASH_PER_UNET_PASS, "flash_attn_bwd": bwd_row["launches"],
-                                "composite_fwd": 0}
+        flash, bwd_row["launches"] = timed("unet-grad", phase_unet_grad, dev, snapshot)
+        by_path["unet-grad"] = {"flash_attn_fwd": flash, "flash_attn_bwd": bwd_row["launches"], "composite_fwd": 0}
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
             flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
@@ -2131,10 +2576,15 @@ def main() -> int:
         by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
         for name, (flash, composite) in timed("render-attn-cli", phase_render_attn_cli, work, snapshot14).items():
             by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        by_path["grid-refine"] = {"flash_attn_fwd": 0, "composite_fwd": timed(
-            "grid-refine", phase_grid_refine, dev, work, snapshot14)}
+        no_unet("grid-refine", phase_grid_refine, dev, work, snapshot14)
         flash, composite = timed("parallel-nccl", phase_parallel_nccl, dev, work)
         by_path["parallel-nccl"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        timed("bf16-mesh-route", phase_bf16_mesh_route, dev)
+        no_unet("eval-cli", phase_eval_cli, dev, work)
+        no_unet("import-reference", phase_import_reference, dev, work)
+        no_unet("oracle-edit", phase_oracle_edit, dev, work)
+        no_unet("oracle-local", phase_oracle_local, dev, work)
+        no_unet("quality-recon", phase_quality_recon, dev, work)
     comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
     for row in (flash_row, bwd_row, comp_row):  # timed() held flash_attn_bwd at 0 on every other path
         row["launches_by_path"] = {path: counts.get(row["name"], 0) for path, counts in by_path.items()}

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of voxe_tpu_torch (nor
 chip_smoke.py or flash_bwd_ablations.py) imports jax, flax, optax, safetensors, voxe_tpu, matplotlib
 or imageio (the card has none of the last three: the port reads safetensors
-itself and writes images and videos with Pillow), and its
+itself and writes images and videos with Pillow), the JAX repo's
+evaluation/ or tools/, or (on import) transformers or pandas, and its
 native segmentation backend is built from the port's own C++ sources into
 its own build directory. Plus the
 flash kernel's wrapper contract, and the kernel held against its plain
@@ -38,7 +39,9 @@ def test_port_imports_no_jax_or_reference_package():
     for name in ("cli.render_sh_based_voxel_grid", "cli.render_sh_based_voxel_grid_attn", "viz.animations",
                  "viz.video", "models.lpips", "cli.validate_sd_weights", "cli.convert_from_nerf_blender_dataset",
                  "models.sd.controllers", "models.sd.seq_aligner", "data.blender", "grid.feature_voxels",
-                 "train.grid_refine", "parallel.mesh", "parallel.distributed"):
+                 "train.grid_refine", "parallel.mesh", "parallel.distributed", "evaluation.inception",
+                 "evaluation.metrics_lib", "cli.calculate_metrics", "cli.import_reference_checkpoint", "tools.oracle",
+                 "tools.demo_oracle_edit", "tools.demo_oracle_local_edit", "tools.quality_run_shearwarp"):
         assert f"voxe_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -46,7 +49,8 @@ def test_port_imports_no_jax_or_reference_package():
         "import chip_smoke\n"
         "import flash_bwd_ablations\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu', 'matplotlib', 'imageio'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'safetensors', 'voxe_tpu', 'matplotlib', 'imageio', 'evaluation', "
+        "'tools', 'transformers', 'pandas'))\n"
         "from voxe_tpu_torch.seg import native\n"
         "native.get_lib()\n"
         "srcs = [native.SEG_SRC_DIR / s for s in native.SOURCES]\n"

@@ -36,6 +36,7 @@ from voxe_tpu_torch.models import volumetric as tvol
 from voxe_tpu_torch.parallel import distributed as tdist
 from voxe_tpu_torch.parallel import mesh as tmesh
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig
+from voxe_tpu_torch.render import shearwarp as tsw
 from voxe_tpu_torch.render.rays import cast_rays, flatten_rays
 from voxe_tpu_torch.train import recon as trecon
 from voxe_tpu_torch.train import refine as trefine
@@ -187,6 +188,42 @@ def check_noisy_exact_render(mesh):
                                     torch.Generator().manual_seed(6), mesh).detach()
 
 
+BF16_POSES = 4
+BF16_BASE = (32, 32)
+
+
+def _bf16_inputs():
+    """The bf16-table gradient check's inputs: a seeded 12^3 field, 4
+    hemisphere poses (yaw, pitch, radius) and a fixed weighting of each
+    base frame."""
+    rng = np.random.default_rng(0)
+    dens = rng.uniform(-1.0, 1.0, (12, 12, 12, 1)).astype(np.float32)
+    feats = rng.uniform(-1.0, 1.0, (12, 12, 12, 3)).astype(np.float32)
+    prng = np.random.default_rng(1)
+    poses = [(float(prng.random() * 360.0), 15.0 + float(prng.random() * 60.0), 4.0) for _ in range(BF16_POSES)]
+    weights = np.random.default_rng(2).standard_normal((BF16_POSES, *BF16_BASE, 3)).astype(np.float32)
+    return dens, feats, poses, weights
+
+
+def check_table_grad(mesh, gather_dtype):
+    """The gradient of a fixed weighted sum of 4 shear-warp base frames
+    (each rank's rows rendered and gathered, as the SDS step does) with
+    respect to the grid, summed over the ranks by all_reduce_grads:
+    [densities, features] flattened."""
+    dens, feats, poses, weights = _bf16_inputs()
+    d, f = torch.from_numpy(dens).requires_grad_(True), torch.from_numpy(feats).requires_grad_(True)
+    grid = VoxelGrid(d, f, VoxelGridConfig(voxel_size=VoxelSize(*[3.0 / 12] * 3), gather_dtype=gather_dtype,
+                                           **GRID_KW))
+    total = torch.zeros(())
+    for pose, w in zip(poses, weights):
+        frame = tsds.render_frame_rows(grid, pose_spherical(*pose), _rcfg(perturb_sampled_points=False), BF16_BASE, mesh=mesh)
+        total = total + (frame * torch.from_numpy(w)).sum()
+    total.backward()
+    if mesh is not None:
+        tmesh.all_reduce_grads(mesh, [d, f])
+    return torch.cat([d.grad.reshape(-1), f.grad.reshape(-1)])
+
+
 def _recon_trainer(scene, out, num_devices):
     """test_parallel.py:200's trainer run: 1 stage of 4 exact steps."""
     ds = PosedImagesDataset(scene / "images", scene / "train_camera_params.json", rgba_white_bkgd=True, device="cpu")
@@ -250,7 +287,7 @@ def _rank_main(rank: int, world: int, port: int, work: str) -> None:
         draws = np.load(work / "draws.npz")
         res.update(exact=check_exact_step(mesh, draws), kstep=check_kstep(mesh), refine=check_refine_step(mesh),
                    noisy_render=check_noisy_exact_render(mesh),
-                   sds=check_sds_step(mesh),
+                   sds=check_sds_step(mesh), bf16_table_grad=check_table_grad(mesh, "bfloat16"),
                    trainer=_recon_trainer(work / "scene16", work / f"trainer_rank{rank}", 2))
     torch.save(res, work / f"world{world}_rank{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -327,6 +364,7 @@ def _jax_references() -> dict:
     from voxe_tpu.grid import voxels as jvox
     from voxe_tpu.parallel.mesh import make_mesh
     from voxe_tpu.render.interface import SHVoxGridRenderConfig as JRenderConfig
+    from voxe_tpu.render.shearwarp import render_shear_warp
     from voxe_tpu.train import recon as jrecon
     from voxe_tpu.utils import camera as jcam
 
@@ -355,7 +393,24 @@ def _jax_references() -> dict:
                       perturb_sampled_points=False), kopt, (16, 16), 3, mesh=mesh)
     k_new, _, k_m = jmulti(jg, kopt.init(jg), targets, masks, jposes, jnp.asarray([0, 2, 1], jnp.int32),
                            jax.random.PRNGKey(11))
-    out = dict(exact_densities=e_new.densities, exact_features=e_new.features,
+    dens, feats, poses, weights = _bf16_inputs()
+
+    def table_grad(gather_dtype, jmesh):
+        cfg = jvox.VoxelGridConfig(voxel_size=jvox.VoxelSize(*[3.0 / 12] * 3), gather_dtype=gather_dtype, **GRID_KW)
+        rcfg = JRenderConfig(num_samples_per_ray=16, camera_bounds=jcam.CameraBounds(2.0, 6.0), white_bkgd=True,
+                             perturb_sampled_points=False)
+
+        def total(d, f):
+            frames = [render_shear_warp(jvox.VoxelGrid(d, f, cfg), jcam.pose_spherical(*pose), rcfg, base_hw=BF16_BASE,
+                                        mesh=jmesh)[0].colour for pose in poses]
+            return sum(jnp.sum(c * w.reshape(-1, 3)) for c, w in zip(frames, weights))
+
+        gd, gf = jax.jit(jax.grad(total, argnums=(0, 1)))(jnp.asarray(dens), jnp.asarray(feats))
+        return jnp.concatenate([gd.reshape(-1), gf.reshape(-1)])
+
+    out = dict(table_grad_f32=table_grad("float32", None), table_grad_bf16=table_grad("bfloat16", None),
+               table_grad_bf16_sharded=table_grad("bfloat16", mesh))
+    out.update(exact_densities=e_new.densities, exact_features=e_new.features,
                exact_grad_densities=e_state[0].densities, exact_grad_features=e_state[0].features,
                exact_loss=e_m["total_loss"], kstep_densities=k_new.densities, kstep_features=k_new.features,
                kstep_loss=k_m["total_loss"])
@@ -539,6 +594,47 @@ def test_sharded_sds_step_matches_unsharded(runs):
         assert torch.equal(r["sds"]["densities"], ranks[0]["sds"]["densities"])
     _check_against_unsharded(ranks[0]["sds"], ref)
     assert ranks[1]["sds"]["density_correlation_loss"] == pytest.approx(ref["density_correlation_loss"], abs=1e-6)
+
+
+def test_sharded_bf16_table_gradient_within_jax_distance(runs, monkeypatch):
+    """With the bf16 table (`gather_dtype="bfloat16"`) each rank contracts
+    its rows of the table's gradient in f32, and the all-reduce sums those
+    shares unrounded: JAX's GSPMD sums before its bf16 rounding, so its
+    sharded gradient on make_mesh(2) equals its unsharded one (both 4.39e-3
+    of max from the f32-table gradient on this input, on the CPU). An f32
+    sum of the shares is one bf16 rounding from the unsharded bf16
+    gradient, so the port's sharded gradient is held against the f32-table
+    gradient instead, at JAX's own bf16 distance from it, computed here
+    (the bound), and must be no farther from it than the unsharded port's
+    bf16 gradient. And it must equal, at 1e-5 of max, the one-process
+    gradient that casts the f32 table inside the row resample: the sum
+    skips the per-rank rounding (1.4e-8 of max on the CPU). Before this
+    the shares were rounded to bf16 apiece: 2 ranks were 1.36e-3 of max
+    from the unsharded gradient (ROADMAP.md section 3)."""
+    ranks = runs.group(2)
+    jax_ref = runs.jax_refs
+    f32 = check_table_grad(None, "float32").numpy()
+    unsharded = check_table_grad(None, "bfloat16").numpy()
+    scale = np.abs(f32).max()
+
+    def dist(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max() / scale)
+
+    assert dist(f32, jax_ref["table_grad_f32"]) < 1e-4  # the f32 reference is JAX's
+    assert dist(jax_ref["table_grad_bf16_sharded"], jax_ref["table_grad_bf16"]) < 1e-4  # JAX sums before rounding
+    bound = dist(jax_ref["table_grad_bf16"], jax_ref["table_grad_f32"])
+    assert 0.0 < bound < 1e-2
+    for r in ranks:
+        assert torch.equal(r["bf16_table_grad"], ranks[0]["bf16_table_grad"])
+    sharded = ranks[0]["bf16_table_grad"].numpy()
+    # the fault itself: the 2-rank sum is the one-process gradient whose
+    # table is cast inside the row resample (one f32 contraction of every
+    # row, no bf16 rounding), up to f32 summation order
+    monkeypatch.setattr(tsw, "_table", lambda unified, gather_dtype, mesh: unified)
+    unrounded = check_table_grad(None, "bfloat16").numpy()
+    assert dist(sharded, unrounded) <= 1e-5, (dist(sharded, unrounded), dist(sharded, f32))
+    assert dist(sharded, f32) <= bound, (dist(sharded, f32), bound)
+    assert dist(sharded, f32) <= dist(unsharded, f32)
 
 
 def test_sharded_refine_attn_step_matches_unsharded(runs):

@@ -41,7 +41,13 @@ composite, so both composites (and the compositing kernel) see rows_local x V
 rays and need no mesh of their own. The render returns the rank's rows; a
 caller that needs the whole image gathers them with `gather_axis`. The JAX
 package constrains the same rows to the mesh (`shard_axis`) and lets GSPMD
-split the work.
+split the work. With a bf16 table (`gather_dtype="bfloat16"`) the mesh path
+keeps the table f32 and casts it inside the row resample
+(`_BF16RowResample`), whose backward contracts this rank's rows in f32: the
+rank's share of the table's gradient then enters the f32 all-reduce
+unrounded, as GSPMD sums the f32 partial products before the bf16 rounding.
+Without a mesh, or on a mesh of one rank (which holds every row), the
+table is cast once and its gradient is bf16, as in JAX.
 
 Density noise (`config.stochastic_density_noise_std > 0`) adds std times one
 standard-normal draw per sample to the masked density, before the weights:
@@ -133,6 +139,40 @@ def _shade_channels(c1: int, num_shade_channels: Optional[int]) -> int:
     return NUM_COLOUR_CHANNELS if c1 > 2 else 1
 
 
+class _BF16RowResample(torch.autograd.Function):
+    """bmm(Wa, x.to(bf16)) for an f32 `x` (the mesh path's table): the same
+    forward as a bf16 table, and a backward that contracts this rank's rows
+    of `Wa` in f32 and returns an f32 gradient, where autograd through the
+    cast would round the rank's partial sum to bf16 before the all-reduce."""
+
+    @staticmethod
+    def forward(ctx, Wa, x):
+        ctx.save_for_backward(Wa)
+        return torch.bmm(Wa, x.to(Wa.dtype))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (Wa,) = ctx.saved_tensors
+        return None, torch.bmm(Wa.transpose(1, 2).float(), grad.float())
+
+
+def _resample_rows(Wa: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[S, U, A] @ [S, A, K] in Wa's dtype (the table dtype)."""
+    if x.dtype == Wa.dtype:
+        return torch.bmm(Wa, x)
+    return _BF16RowResample.apply(Wa, x)
+
+
+def _table(unified: torch.Tensor, gather_dtype: str, mesh) -> torch.Tensor:
+    """The resample table: cast to bf16 once under a bf16 table, unless a
+    mesh of 2 or more ranks splits its rows, whose resample casts it
+    (`_resample_rows`). A one-rank mesh holds every row: its sum is the
+    whole sum."""
+    if gather_dtype == "bfloat16" and (mesh is None or mesh.size == 1):
+        return unified.to(torch.bfloat16)
+    return unified
+
+
 def _streamed_composite(
     vol: torch.Tensor,  # [S, A, B, C+1] pre-activated (features..., density)
     Wa: torch.Tensor,  # [S, U, A] f32 hat weights
@@ -156,18 +196,20 @@ def _streamed_composite(
     degree-0 (diffuse) shading into extra["diffuse_colour"]; `diffuse_only`
     shades the colour itself at degree 0. `num_shade_channels` overrides the
     channel count (the attention field's C; 3 or 1 by default). `noise`
-    ([N, S] in marching order, scaled) is added to the masked density."""
+    ([N, S] in marching order, scaled) is added to the masked density.
+    The resample runs in the table's dtype; an f32 `vol` under a bf16 table
+    is the mesh path's (`_table`, `_resample_rows`)."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
-    dt = vol.dtype
+    dt = torch.bfloat16 if grid_config.gather_dtype == "bfloat16" else vol.dtype
     f_post = ACTIVATIONS[grid_config.feature_postactivation]
     d_post = ACTIVATIONS[grid_config.density_postactivation]
     Wa_dt, Wb_dt = Wa.to(dt), Wb.to(dt)
 
     # ---- pass 1: density-only resample -> weights. Matmuls in the volume
     # dtype accumulate in f32 (cuBLAS); a bf16 result is rounded once
-    tmp_d = torch.bmm(Wa_dt, vol[..., -1])  # [S, U, B]
+    tmp_d = _resample_rows(Wa_dt, vol[..., -1])  # [S, U, B]
     dens_rs = torch.bmm(tmp_d, Wb_dt.transpose(1, 2)).float()  # [S, U, V]
     dens = d_post(dens_rs).reshape(S, N)
     dens = torch.where(inside_sn, dens, torch.zeros((), device=dens.device))
@@ -203,7 +245,7 @@ def _streamed_composite(
 
     def shade_block(vol_b, Wa_b, Wb_b, w_b, in_b):
         Sb, Cf = vol_b.shape[0], vol_b.shape[-1]
-        tmp = torch.bmm(Wa_b, vol_b.reshape(Sb, A, B * Cf)).reshape(Sb, U, B, Cf)
+        tmp = _resample_rows(Wa_b, vol_b.reshape(Sb, A, B * Cf)).reshape(Sb, U, B, Cf)
         res = torch.einsum("svb,subc->suvc", Wb_b, tmp)  # [Sb, U, V, Cf]
         feats = f_post(res).reshape(Sb, N, num_channels, n_coeffs)
         degree, coeffs = (0, feats[..., :1]) if diffuse_only else (sh_degree, feats)
@@ -263,12 +305,13 @@ def _monolithic_composite(
     and composite with accumulate(final_delta="slab"), through the fused
     kernel when `config.use_fused_kernel`. The density stays f32 through the
     weights math; the radiance stays in the volume dtype. `noise` ([N, S],
-    scaled) is added to the masked density that both composites read."""
+    scaled) is added to the masked density that both composites read.
+    The resample's dtype as in `_streamed_composite`."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
-    dt = vol.dtype
-    tmp = torch.bmm(Wa.to(dt), vol.reshape(S, A, B * C1)).reshape(S, U, B, C1)
+    dt = torch.bfloat16 if grid_config.gather_dtype == "bfloat16" else vol.dtype
+    tmp = _resample_rows(Wa.to(dt), vol.reshape(S, A, B * C1)).reshape(S, U, B, C1)
     res = torch.einsum("svb,subc->suvc", Wb.to(dt), tmp)  # [S, U, V, C+1]
     resampled = res.permute(1, 2, 0, 3).reshape(N, S, C1)
     feats = ACTIVATIONS[grid_config.feature_postactivation](resampled[..., :-1])
@@ -447,9 +490,7 @@ def render_shear_warp(
         features, num_shade_channels = voxel_grid.attn, int(voxel_grid.attn.shape[-1])
     pre_density = ACTIVATIONS[cfg.density_preactivation](densities * cfg.expected_density_scale)
     pre_features = ACTIVATIONS[cfg.feature_preactivation](features)
-    unified = torch.cat([pre_features, pre_density], dim=-1)
-    if cfg.gather_dtype == "bfloat16":
-        unified = unified.to(torch.bfloat16)
+    unified = _table(torch.cat([pre_features, pre_density], dim=-1), cfg.gather_dtype, mesh)
     dev = unified.device
 
     def vec(values):
