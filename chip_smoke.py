@@ -21,13 +21,12 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
   5. the edit main path at full width: the SDS edit step (SD 2.0 at its
      published widths with seeded random weights, 160^3 grid, 384^2 base)
      through `make_sds_train_multi_step`: launch counts, median ms/step with
-     its spread, peak memory, a per-layer breakdown and the idle share;
+     its spread, peak memory;
   6. the recon main path at full width: a 400^2 synthetic scene rendered by
      the exact renderer (the compositing kernel's route 2), targets warped to
      the 768^2 base lattice, shear-warp recon steps at 160^3 with the fused
-     compositing kernel and Adam (2 launches per step), a breakdown and the
-     idle share, then the held-out images through the tester (5 launches per
-     400^2 image);
+     compositing kernel and Adam (2 launches per step), then the held-out
+     images through the tester (5 launches per 400^2 image);
   6a. recon-kstep: that configuration at K = 10 steps a call against K = 1,
      two rounds of 20 steps, each call ending in a loss read;
   7. recon-cli: the recon stage ladder end to end through its CLI module at
@@ -46,8 +45,7 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
   7a. render-cli-exact: the render CLI on that model_final.pth at its full
      width (800^2, 512 samples, the exact renderer in chunks of 32,768 rays:
      20 compositing launches a frame), 8 frames of the turntable: ms per
-     frame, launches per frame, peak memory, the video read back, one
-     frame's device profile;
+     frame, launches per frame, peak memory, the video read back;
   7b. render-cli-shear-warp: the same through the shear-warp screen render
      (1600^2 base, 1 launch a frame), 36 frames;
   7f. feature-grid: the feature-voxel model (160^3 x 12 features, the
@@ -82,9 +80,7 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      head_dim 40 at 64^2, so the library SDPA there) with seeded random
      weights, written as an HF snapshot and loaded back bitwise; the 64^2
      self-attention's time and transient memory, SDPA against the plain
-     version; then
-     refine-breakdown: one refinement iteration at full width (160^3, 384^2
-     base) layer by layer;
+     version;
  12. refine-cli: the refine CLI module on the edit-cli phase's
      model_final.pth and the recon CLI's, with the 1.4 snapshot: 6
      shear-warp iterations (2 compositing launches each), feedback and
@@ -131,7 +127,7 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      bitwise, one 400^2 exact frame through the compositing kernel;
  14o. oracle-edit: the oracle SDS edit demo at 160^3 / 256^2 base, 300
      iterations (colour distance to the target at least halved, density
-     correlation > 0.9), ms a step, the device's busy share (torch.profiler);
+     correlation > 0.9), ms a step;
  14l. oracle-local: the local oracle demo at 160^3 / 256^2, 300 + 300
      iterations, the graph cut and merge (body restored, IoU > 0.5, body
      mislabel < 0.2), ms a step of each stage, the cut's seconds;
@@ -183,7 +179,6 @@ from voxe_tpu_torch.cli import validate_sd_weights as validate_cli
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.data.synthetic import generate_synthetic_scene, make_demo_grid
 from voxe_tpu_torch.models.lpips import build_vgg16_features
-from voxe_tpu_torch.models.sd import cross_attn
 from voxe_tpu_torch.models.sd.controllers import AttentionRefine
 from voxe_tpu_torch.models.sd import weights as sd_weights
 from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, _bytes_to_unicode
@@ -196,22 +191,19 @@ from voxe_tpu_torch.ops import flash_attention as fa
 from voxe_tpu_torch.render.accumulate import _pad_samples
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_feature_voxel_grid
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
-from voxe_tpu_torch.render.shearwarp import lane_aligned_res, orient_base_image, render_shear_warp
+from voxe_tpu_torch.render.shearwarp import lane_aligned_res, render_shear_warp
 from voxe_tpu_torch.train import recon as train_recon
-from voxe_tpu_torch.train import refine as train_refine
 from voxe_tpu_torch.train import grid_refine
 from voxe_tpu_torch.train import sds as train_sds
 from voxe_tpu_torch.train.checkpointing import read_training_state
-from voxe_tpu_torch.train.losses import density_correlation_loss
 from voxe_tpu_torch.tools import demo_oracle_edit as demo_edit_tool
 from voxe_tpu_torch.tools import demo_oracle_local_edit as demo_local_tool
 from voxe_tpu_torch.tools import quality_run_shearwarp as quality_tool
 from voxe_tpu_torch.tools.oracle import render_frame
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
-from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose, pose_spherical
+from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, pose_spherical
 from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid
-from voxe_tpu_torch.viz.animations import render_camera_path_for_volumetric_model
 from voxe_tpu_torch.viz.video import read_mjpeg_avi
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak (data sheet, SXM, 700 W)
@@ -648,8 +640,6 @@ def phase_main(dev) -> tuple:
         raise AssertionError(f"flash kernel launched {launches} times in {steps} steps, want 5 per step")
     if not all(np.isfinite(losses)) or not moved > 0.0:
         raise AssertionError(f"main path: losses {losses}, grid change {moved}")
-    breakdown(sd, grid, text_by_dir[3], ref_d)
-    profile_call(lambda: multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen), STEPS_PER_CALL, ms_step)
     return launches, composite_launches
 
 
@@ -661,77 +651,6 @@ def reset_counts() -> None:
     BWD_IN_PHASE += fa.LAUNCHES_BWD
     fa.reset_launches()
     comp.reset_launches()
-
-
-def profile_call(fn, steps: int, ms_step: float) -> None:
-    """Device busy time and top kernels of one multi-step call under
-    torch.profiler. The profiler's own overhead inflates its wall time, so
-    the idle share is also given against the unprofiled `ms_step`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        fn()
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy_ms = sum(k[1] for k in kernels)
-    if busy_ms == 0.0:
-        log("profile", device_time="not measured (profiler saw no device time)")
-        return
-    top = sorted(kernels, key=lambda k: -k[1])[:10]
-    ours = {n: sum(t for key, t, _ in kernels if n in key) / steps for n in ("flash_fwd_kernel", "composite_fwd_kernel")}
-    log("profile", steps=steps, wall_ms_per_step=wall_ms / steps, device_busy_ms_per_step=busy_ms / steps,
-        idle_share_profiled=1.0 - busy_ms / wall_ms,
-        idle_share_vs_unprofiled_step=1.0 - busy_ms / steps / ms_step,
-        kernel_launches_per_step=sum(k[2] for k in kernels) / steps,
-        flash_ms_per_step=ours["flash_fwd_kernel"], composite_ms_per_step=ours["composite_fwd_kernel"])
-    print("[profile-top] " + json.dumps(
-        [{"kernel": k[:90], "ms_per_step": t / steps, "calls_per_step": c / steps} for k, t, c in top]
-    ), flush=True)
-
-
-def clocked(parts: dict, name: str, fn):
-    """Run fn between two device syncs; append its ms to parts[name]."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    parts.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def breakdown(sd, grid, text, ref_d) -> None:
-    """Per-layer device time of one edit step at a fixed pose, with a
-    synchronised host clock around each layer (median of 3)."""
-    pose = pose_spherical(30.0, 40.0, 4.0311)
-    rot = torch.as_tensor(pose.rotation, device=grid.densities.device)
-    cam = CameraPose(rot, torch.as_tensor(pose.translation, device=rot.device))
-    gen = torch.Generator(device=rot.device).manual_seed(2)
-    parts = {}
-
-    def clock(name, fn):
-        return clocked(parts, name, fn)
-
-    for _ in range(4):
-        g = grid.replace(densities=grid.densities.detach().requires_grad_(True),
-                         features=grid.features.detach().requires_grad_(True))
-        out = clock("render_fwd", lambda: render_shear_warp(g, cam, RCFG, base_hw=(BASE, BASE))[0])
-        img = orient_base_image(out.colour.reshape(BASE, BASE, 3), rot)[None]
-        lat = clock("resize_vae_encode_fwd", lambda: sd.encode_imgs(F.interpolate(
-            img.permute(0, 3, 1, 2), size=(sd.config.image_size,) * 2, mode="bilinear", antialias=True), None))
-        noisy = sd.scheduler.add_noise(lat.detach(), torch.randn(lat.shape, generator=gen, device=lat.device), 500)
-        clock("unet_cfg_fwd", lambda: sd.unet_noise_pred(torch.cat([noisy] * 2), 500, text))
-        loss = (lat * torch.randn(lat.shape, generator=gen, device=lat.device)).sum()
-        loss = loss + 200.0 * density_correlation_loss(g.densities, ref_d)[0]
-        clock("backward_vae_render_dcl", loss.backward)
-    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
-    log("breakdown", **{f"{k}_ms": v for k, v in med.items()})
 
 
 def make_recon_grid(res: int, dev, seed: int = 0, gather_dtype: str = "bfloat16", sh_degree: int = 0):
@@ -845,8 +764,6 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
     if eval_launches != 5 * len(test) or not np.isfinite(metrics["psnr"]):
         raise AssertionError(f"held-out render: {eval_launches} launches for {len(test)} images, want 5 each")
     total_launches = fa.LAUNCHES, comp.LAUNCHES
-    recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw)
-    profile_call(lambda: step(grid, targets, masks, poses, 0), 1, ms_step)
     context = dict(grid=grid, opt=opt, rcfg=rcfg, targets=targets, masks=masks, poses=poses, base_hw=base_hw,
                    num_images=len(train))
     return total_launches, context
@@ -889,27 +806,6 @@ def phase_recon_kstep(ctx: dict) -> tuple:
     if launches != 2 * steps or flash != 0 or not np.isfinite(losses).all():
         raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 2 a step")
     return flash, launches
-
-
-def recon_breakdown(grid, opt, rcfg, targets, masks, poses, base_hw) -> None:
-    """Per-layer time of the recon step with a synchronised host clock
-    around each layer (median of 3 after one warm-up)."""
-    parts = {}
-    for i in range(4):
-        idx = i % poses.shape[0]
-        pose = CameraPose(rotation=poses[idx][:, :3], translation=poses[idx][:, 3:])
-        m = masks[idx][..., None]
-        denom = torch.clamp(masks[idx].sum() * 3, min=1.0)
-        opt.zero_grad(set_to_none=True)
-        out = clocked(parts, "render_fwd", lambda: render_shear_warp(
-            grid, pose, rcfg, base_hw=base_hw, with_diffuse=True)[0])
-        total = clocked(parts, "loss", lambda: train_recon.photometric_losses(
-            out.colour.reshape(*base_hw, 3), out.extra["diffuse_colour"].reshape(*base_hw, 3),
-            targets[idx], True, mask=m, denom=denom)[0])
-        clocked(parts, "backward", total.backward)
-        clocked(parts, "adam", opt.step)
-    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
-    log("recon-breakdown", **{f"{k}_ms": v for k, v in med.items()})
 
 
 class LogRecords(logging.Handler):
@@ -1155,14 +1051,6 @@ def phase_render_cli(workdir: Path, shear_warp: bool) -> tuple:
         raise AssertionError(f"{name}: frames {frames.shape}, {launches} launches, want {per_frame} a frame")
     if not 0 < frames.mean() < 255:
         raise AssertionError(f"{name}: blank frames")
-    # device busy time and top kernels of one frame
-    config = render_cli.build_parser().parse_args(args)
-    model, info = load_volumetric_model(Path(config.model_path), device="cuda")
-    model.render_config = model.render_config.replace(white_bkgd=True)
-    intr, poses = render_cli.camera_setup(config, info)
-    profile_call(lambda: render_camera_path_for_volumetric_model(
-        model, poses[:1], intr, config.overridden_num_samples_per_ray, config.render_scale_factor,
-        use_shear_warp=shear_warp), 1, stats["ms_per_frame_median"])
     return flash, launches
 
 
@@ -1311,8 +1199,7 @@ def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
         raise AssertionError(f"the loaded SD {version} differs from its source: {equal}")
     if version != SD_VERSION:
         attention_64(dev, loaded)
-        fa.REFERENCE_ON_CUDA = 0  # the comparison above called the plain version; the breakdown must not
-        refine_breakdown(dev, loaded, workdir)
+        fa.REFERENCE_ON_CUDA = 0  # the comparison above called the plain version; later phases must not
     del src, loaded, pairs
     torch.cuda.empty_cache()
     return root
@@ -1340,47 +1227,6 @@ def attention_64(dev, sd: StableDiffusion) -> None:
         stats[f"{name}_ms"] = time_ms(fn, iters=10, warmup=2)
     log("attention-64", shape=list(shape), gated_to_flash=flash_self_attention_enabled(shape[1], shape[3]),
         calls_per_unet_pass=5, **stats)
-
-
-def refine_breakdown(dev, sd: StableDiffusion, workdir: Path) -> None:
-    """One refinement iteration at full width, layer by layer (synchronised
-    host clock, median of 3 after one warm-up): the edit-cli phase's 160^3
-    grid with two -20 attention channels, the 384^2 base, SD 1.4."""
-    model, _ = load_volumetric_model(workdir / "edit-cli" / "saved_models" / "model_final.pth", device=dev, with_attn=True)
-    grid, rcfg = model.grid, model.render_config
-    attn = grid.attn.repeat(1, 1, 1, 2).requires_grad_(True)
-    opt = torch.optim.Adam([attn], lr=0.028, betas=(0.9, 0.999), eps=1e-8)
-    pose = pose_spherical(30.0, 40.0, 4.0311)
-    rot = torch.as_tensor(pose.rotation, device=dev)
-    cam = CameraPose(rot, torch.as_tensor(pose.translation, device=dev))
-    text = sd.get_text_embeds("a dog wearing a party hat, side view")
-    n_tok = sd.get_num_tokens("a dog wearing a party hat, side view")
-    idxs, emask, omask = train_refine.token_selection(n_tok, [4, 5], None)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    base_hw = (BASE, BASE)
-    parts = {}
-
-    def clock(name, fn):
-        return clocked(parts, name, fn)
-
-    for _ in range(4):
-        with torch.no_grad():
-            out = clock("rgb_frame", lambda: render_shear_warp(grid, cam, rcfg, base_hw=base_hw)[0])
-        rgb = orient_base_image(out.colour.reshape(BASE, BASE, 3), rot)[None]
-        lat = clock("resize_vae_encode", lambda: sd.encode_imgs(sd.resize_to_image_size(rgb), None))
-        noisy = sd.scheduler.add_noise(lat, torch.randn(lat.shape, generator=gen, device=dev), 200)
-        _, store = clock("capture_unet", lambda: sd.unet_noise_pred(torch.cat([noisy] * 2), 200, text, capture_attn=True))
-        targets = clock("token_maps", lambda: train_refine.select_targets(
-            cross_attn.aggregate_token_maps(store, idxs, BASE, BASE), emask.to(dev), omask.to(dev)))
-        opt.zero_grad(set_to_none=True)
-        aout = clock("attn_render_fwd", lambda: render_shear_warp(
-            grid.replace(attn=attn), cam, rcfg, base_hw=base_hw, attn_mode=True, background_value=0.0)[0])
-        rendered = orient_base_image(aout.colour.reshape(BASE, BASE, 2), rot)
-        loss = sum(train_refine.calc_loss_on_attn_grid(rendered[..., c], targets[c]) for c in (0, 1))
-        clock("attn_render_bwd", loss.backward)
-        clock("adam", opt.step)
-    med = {k: float(np.median(v[1:])) for k, v in parts.items()}
-    log("refine-breakdown", **{f"{k}_ms": v for k, v in med.items()}, sum_ms=sum(med.values()))
 
 
 def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
@@ -2409,14 +2255,12 @@ def phase_import_reference(dev, workdir: Path) -> tuple:
 
 
 ORACLE_RES, ORACLE_BASE, ORACLE_ITERS = 160, 256, 300  # the README's production runs of both demos
-ORACLE_PROFILE_STEPS = 10
 
 
 def phase_oracle_edit(dev, workdir: Path) -> tuple:
     """demo_oracle_edit at 160^3 / 256^2 base, 300 iterations (its
     production run): the colour distance to the target at least halved,
-    density correlation > 0.9; ms a step, then the device's busy share over
-    ORACLE_PROFILE_STEPS more steps under torch.profiler. Returns the demo's
+    density correlation > 0.9; ms a step. Returns the demo's
     (flash, compositing) launches (the compositing ones: its exact frames)."""
     from voxe_tpu_torch.tools import oracle
 
@@ -2427,10 +2271,6 @@ def phase_oracle_edit(dev, workdir: Path) -> tuple:
     flash, launches = fa.LAUNCHES, comp.LAUNCHES
     log("oracle-edit", **m, composite_launches=launches, flash_launches=flash, tpu_record_density_correlation=0.999,
         card=card_line().replace(" ", "_"))
-    grid = make_demo_grid(ORACLE_RES, device=dev)
-    sds = oracle.MaskedOracleSDS(oracle.GOLDEN, device=dev)
-    profile_call(lambda: oracle.run_oracle_sds(grid, sds, oracle.demo_render_config(), (ORACLE_BASE,) * 2,
-                                               ORACLE_PROFILE_STEPS, 1), ORACLE_PROFILE_STEPS, m["ms_per_step"])
     if not (m["colour_distance_after"] < 0.5 * m["colour_distance_before"] and m["density_correlation"] > 0.9
             and launches > 0):
         raise AssertionError(f"oracle-edit: {m}, {launches} launches")

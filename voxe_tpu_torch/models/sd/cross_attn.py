@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from voxe_tpu_torch.utils import tracing
+
 AGGREGATION_RES = 16  # the reference aggregates the 16x16 maps
 
 
@@ -34,12 +36,13 @@ def gaussian_smooth_maps(maps: torch.Tensor, kernel_size: int = 3, sigma: float 
     ax = np.arange(kernel_size) - (kernel_size - 1) / 2.0
     g = np.exp(-0.5 * (ax / sigma) ** 2)
     kernel2d = np.outer(g, g)
-    kernel = torch.as_tensor(kernel2d / kernel2d.sum(), dtype=maps.dtype, device=maps.device)
+    kernel = tracing.upload(kernel2d / kernel2d.sum(), "maps.kernel", dtype=maps.dtype, device=maps.device)
     pad = kernel_size // 2
     padded = F.pad(maps[:, None], (pad, pad, pad, pad), mode="replicate")
     return F.conv2d(padded, kernel[None, None])[:, 0]
 
 
+@tracing.traced("sd.maps")
 def aggregate_token_maps(
     attn_store,
     token_indices: Sequence[int],
@@ -51,7 +54,7 @@ def aggregate_token_maps(
     """Per-token [B, H, W] maps at the render's size for the CLIP token
     positions `token_indices` (a list or an integer tensor)."""
     agg = aggregate_attention(attn_store, res=res)  # [res, res, K]
-    idx = torch.as_tensor(token_indices, dtype=torch.long, device=agg.device)
+    idx = tracing.upload(token_indices, "maps.tokens", dtype=torch.long, device=agg.device)
     token_maps = agg.index_select(-1, idx).permute(2, 0, 1)  # [B, res, res]
     if smooth:
         token_maps = gaussian_smooth_maps(token_maps)

@@ -43,6 +43,7 @@ from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer, get
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.logging import log
 from voxe_tpu_torch.utils.timing import FrameClock
 
@@ -178,7 +179,8 @@ class StableDiffusion:
     def sample_timestep(self, generator: torch.Generator) -> int:
         """t ~ U{min_step, ..., max_step} with the current annealed bounds."""
         lo, hi = self.t_bounds()
-        return int(torch.randint(lo, hi + 1, (), generator=generator, device=generator.device))
+        t = torch.randint(lo, hi + 1, (), generator=generator, device=generator.device)
+        return int(tracing.scalar(t, "draw.t"))
 
     def get_num_tokens(self, prompt: str) -> int:
         return get_num_tokens(self.tokenizer, prompt)
@@ -201,6 +203,7 @@ class StableDiffusion:
         s = self.config.image_size // f
         return (batch, self.config.vae.latent_channels, s, s)
 
+    @tracing.traced("sd.encode")
     def encode_imgs(self, imgs_nchw, eps=None):
         """imgs [B, 3, H, W] in [0, 1] -> f32 scaled latents [B, 4, h, w],
         run in the VAE's dtype."""
@@ -219,6 +222,7 @@ class StableDiffusion:
         return torch.clamp(self.vae.decode(x).float() / 2.0 + 0.5, 0.0, 1.0)
 
     @torch.no_grad()
+    @tracing.traced("sd.unet")
     def unet_noise_pred(self, latents_in, t, text_embeddings, capture_attn: bool = False, attn_edit_fn=None):
         """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction;
         with `capture_attn`, (prediction, captured (tag, [2B, Q, K]) maps).

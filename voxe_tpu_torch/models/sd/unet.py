@@ -43,6 +43,7 @@ from torch import nn
 from voxe_tpu_torch.models.sd.config import UNetConfig
 from voxe_tpu_torch.models.sd.norms import GroupNorm
 from voxe_tpu_torch.ops.flash_attention import flash_attention
+from voxe_tpu_torch.utils import tracing
 
 
 def flash_self_attention_enabled(q_len: int, head_dim: int) -> bool:
@@ -235,7 +236,7 @@ class UNet2DConditionModel(nn.Module):
         cfg = self.config
         n_levels = len(cfg.block_out_channels)
         ctx = encoder_hidden_states
-        t = torch.as_tensor(timesteps, device=sample.device).reshape(-1)
+        t = tracing.upload(timesteps, "unet.t", device=sample.device).reshape(-1)
         temb = timestep_embedding(t, cfg.block_out_channels[0], cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = temb.expand(sample.shape[0], -1)
         # the sinusoid and its two projections run in f32 (flax promotes the

@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from voxe_tpu_torch.ops.cuda_build import CudaLibrary
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.constants import INFINITY
 
 _LIB = CudaLibrary(
@@ -118,7 +119,9 @@ class _CompositeWeights(torch.autograd.Function):
             return None, None, None
         with torch.enable_grad():
             outs = composite_weights_reference(*inputs)
-        grads = iter(torch.autograd.grad(outs, wanted, (grad_weights, grad_acc)))
+        # cumprod's backward reads on the host whether any input is zero: one sync
+        grads = iter(tracing.synced("composite.backward",
+                                    lambda: torch.autograd.grad(outs, wanted, (grad_weights, grad_acc))))
         return tuple(next(grads) if x.requires_grad else None for x in inputs)
 
 

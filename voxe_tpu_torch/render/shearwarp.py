@@ -74,6 +74,7 @@ from voxe_tpu_torch.render.accumulate import (
 )
 from voxe_tpu_torch.render.rays import Rays, cast_rays
 from voxe_tpu_torch.render.sh import evaluate_spherical_harmonics
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
@@ -110,16 +111,18 @@ def lane_aligned_res(n: int, tol: float = 0.10) -> int:
     return m if abs(m - n) <= tol * n else n
 
 
-def _host_f32(x) -> np.ndarray:
+def _host_f32(x, site: str = "pose") -> np.ndarray:
+    """`x` as a float32 numpy array; a tensor is read through
+    `tracing.scalar`."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", torch.float32).numpy()
+        return tracing.scalar(x.detach(), site).to(torch.float32).numpy()
     return np.asarray(x, np.float32)
 
 
 def _principal_branch(view_dir) -> int:
     """view_dir [3] (world) -> branch index in [0, 6): axis * 2 + (dir > 0).
     Ties go to the lowest axis, as jnp.argmax breaks them."""
-    vd = _host_f32(view_dir).reshape(3)
+    vd = _host_f32(view_dir, "render.view").reshape(3)
     axis = int(np.argmax(np.abs(vd)))
     return axis * 2 + int(vd[axis] > 0.0)
 
@@ -377,8 +380,8 @@ def _render_canonical(
     j = torch.arange(S, dtype=f, device=dev)
     tau = (j - e_k) / (0.0 - e_k)  # [S] >= 1
 
-    a_corners = torch.tensor([0.0, A - 1.0], dtype=f, device=dev)
-    b_corners = torch.tensor([0.0, B - 1.0], dtype=f, device=dev)
+    a_corners = tracing.upload([0.0, A - 1.0], "render.geometry", dtype=f, device=dev)
+    b_corners = tracing.upload([0.0, B - 1.0], "render.geometry", dtype=f, device=dev)
     far = tau[-1]
     a_proj = e_a + (a_corners - e_a) / far
     b_proj = e_b + (b_corners - e_b) / far
@@ -442,6 +445,7 @@ def _render_canonical(
     return out, dirs_all, lo, hi
 
 
+@tracing.traced("render")
 def render_shear_warp(
     voxel_grid: VoxelGrid,
     pose: CameraPose,
@@ -494,7 +498,7 @@ def render_shear_warp(
     dev = unified.device
 
     def vec(values):
-        return torch.tensor(list(values), dtype=torch.float32, device=dev)
+        return tracing.upload(list(values), "render.geometry", dtype=torch.float32, device=dev)
 
     dims = vec(grid_dims)
     vsizes = vec(cfg.voxel_size)
@@ -504,7 +508,7 @@ def render_shear_warp(
 
     branch = _principal_branch(-rot[:, 2])
     axis, positive = branch // 2, branch % 2 == 1
-    M = torch.tensor(_PERM_MATS_NP[axis], dtype=torch.float32, device=dev)
+    M = tracing.upload(_PERM_MATS_NP[axis], "render.geometry", dtype=torch.float32, device=dev)
     vs = M @ vsizes
     lo3 = M @ aabb_lo
     if not positive:  # march toward -k: far face becomes the origin
@@ -545,7 +549,7 @@ def orient_base_image(img: torch.Tensor, rotation) -> torch.Tensor:
     run down the camera's -up, columns along camera right; non-square
     images only flip."""
     U, V = img.shape[0], img.shape[1]
-    rot = _host_f32(rotation)
+    rot = _host_f32(rotation, "orient.pose")
     branch = _principal_branch(-rot[:, 2])
     a_ax, b_ax, _ = _PERMS[branch // 2]
     right, up = rot[:, 0], rot[:, 1]

@@ -68,6 +68,7 @@ from voxe_tpu_torch.train.checkpointing import (
     save_training_state,
     training_state_arrays,
 )
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     CAMERA_BOUNDS,
@@ -116,6 +117,7 @@ def render_specular_and_diffuse(
     return tuple(outs)
 
 
+@tracing.traced("loss")
 def photometric_losses(colour, diffuse_colour, target, apply_diffuse: bool, mask=None, denom=None):
     """(the L1 objective, its metrics: the L1 losses and the MSEs, which
     `psnr_metrics` turns into PSNRs), optionally masked, and divided by
@@ -178,16 +180,18 @@ def optimizer_step(optimizer: torch.optim.Optimizer, total: torch.Tensor, metric
     all-reduce between the backward and the update sums the gradients and
     the shares, so every rank takes the unsharded update and reports the
     unsharded metrics."""
-    if mesh is None:
-        total.backward()
-        metrics["total_loss"] = total.detach()
-    else:
-        if total.requires_grad:  # a rank may hold no term with a gradient
+    with tracing.span("backward"):
+        if mesh is None:
             total.backward()
-        shares = {**metrics, "total_loss": total if total_share is None else total_share}
-        metrics = all_reduce_grads(mesh, params_of([optimizer]), shares)
-    apply_lr_schedule(optimizer, lr_schedule)
-    optimizer.step()
+            metrics["total_loss"] = total.detach()
+        else:
+            if total.requires_grad:  # a rank may hold no term with a gradient
+                total.backward()
+            shares = {**metrics, "total_loss": total if total_share is None else total_share}
+            metrics = all_reduce_grads(mesh, params_of([optimizer]), shares)
+    with tracing.span("optim"):
+        apply_lr_schedule(optimizer, lr_schedule)
+        optimizer.step()
     return metrics
 
 
@@ -375,10 +379,11 @@ def make_recon_train_step_shearwarp(
     base_hw = tuple(base_hw)
 
     def step(grid, targets, masks, poses, image_idx, generator=None):
-        image_idx = int(image_idx)
-        target, mask, pose_rt = targets[image_idx], masks[image_idx], poses[image_idx]
-        pose = CameraPose(rotation=pose_rt[:, :3], translation=pose_rt[:, 3:])
-        denom = torch.clamp(mask.sum() * NUM_COLOUR_CHANNELS, min=1.0)
+        with tracing.span("draw"):  # the drawn view's target, coverage and pose
+            image_idx = int(image_idx)
+            target, mask, pose_rt = targets[image_idx], masks[image_idx], poses[image_idx]
+            pose = CameraPose(rotation=pose_rt[:, :3], translation=pose_rt[:, 3:])
+            denom = torch.clamp(mask.sum() * NUM_COLOUR_CHANNELS, min=1.0)
         if mesh is not None:
             target, mask = shard_axis(mesh, target, 0), shard_axis(mesh, mask, 0)
         rows_hw = (mask.shape[0], base_hw[1])
@@ -424,7 +429,8 @@ def make_recon_train_multi_step_shearwarp(
             raise ValueError(f"image_idxs must hold {steps_per_call} indices, got {len(idxs)}")
         metrics = {}
         for idx in idxs:
-            metrics = step(grid, targets, masks, poses, idx, generator)
+            with tracing.span("step"):
+                metrics = step(grid, targets, masks, poses, idx, generator)
         return metrics
 
     return multi

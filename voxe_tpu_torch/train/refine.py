@@ -69,6 +69,7 @@ from voxe_tpu_torch.train.sds import (
     render_rays_sharded,
     replicated_share,
 )
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.camera import CameraPose, direction_index, get_random_pose, random_pose
 from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.logging import log
@@ -89,6 +90,7 @@ def make_attn_adam(attn: torch.Tensor, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam([attn], lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+@tracing.traced("optim")
 def _step_adams(optimizers, lr_schedule, metrics: dict, mesh=None) -> dict:
     """One update of each optimizer at the schedule's lr; returns the
     detached metrics. With `mesh` one all-reduce first sums both grids'
@@ -137,13 +139,15 @@ def make_dual_attn_update(
         if mesh is not None:
             colour = gather_axis(mesh, colour, 0, sw_hw[0])
         rendered = orient_base_image(colour, rotation)
-        attn_l_e = calc_loss_on_attn_grid(rendered[..., 0], edit_map.detach())
-        attn_l_o = calc_loss_on_attn_grid(rendered[..., 1], obj_map.detach())
-        tv_e, tv_o = tv_loss_on_grid(edit_attn), tv_loss_on_grid(obj_attn)
-        tv_weight = attn_tv_weight * replicated_share(mesh)  # TV on the replicated grids: counted once
-        loss_e = attn_l_e + tv_e * tv_weight
-        loss_o = attn_l_o + tv_o * tv_weight
-        (loss_e + loss_o).backward()  # the channels' losses are independent
+        with tracing.span("loss"):
+            attn_l_e = calc_loss_on_attn_grid(rendered[..., 0], edit_map.detach())
+            attn_l_o = calc_loss_on_attn_grid(rendered[..., 1], obj_map.detach())
+            tv_e, tv_o = tv_loss_on_grid(edit_attn), tv_loss_on_grid(obj_attn)
+            tv_weight = attn_tv_weight * replicated_share(mesh)  # TV on the replicated grids: counted once
+            loss_e = attn_l_e + tv_e * tv_weight
+            loss_o = attn_l_o + tv_o * tv_weight
+        with tracing.span("backward"):
+            (loss_e + loss_o).backward()  # the channels' losses are independent
         metrics = dict(
             attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=attn_l_e + tv_e * attn_tv_weight,
             attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=attn_l_o + tv_o * attn_tv_weight,
@@ -160,7 +164,7 @@ def select_targets(maps: torch.Tensor, edit_mask: torch.Tensor, obj_mask: torch.
     neg = torch.full((), -1e9, dtype=maps.dtype, device=maps.device)
     edit_map = torch.where(edit_mask[:, None, None] > 0, maps, neg).amax(dim=0)
     obj_map = torch.where(obj_mask[:, None, None] > 0, maps, neg).amax(dim=0)
-    if not bool(obj_mask.sum() > 0):
+    if not bool(tracing.scalar(obj_mask.sum() > 0, "targets.object")):
         obj_map = torch.zeros_like(obj_map)
     return edit_map, obj_map
 
@@ -262,19 +266,22 @@ def make_refine_multi_step(
         dev = edit_attn.device
         metrics = {}
         for i in range(steps_per_call):
-            if poses is None:
-                rotation, translation, pitch_deg, yaw_deg = random_pose(generator, radius, device=dev)
-            else:
-                rotation, translation, pitch_deg, yaw_deg = (
-                    torch.as_tensor(x[i], dtype=torch.float32, device=dev) for x in poses)
-            dir_idx = direction_index(float(pitch_deg), float(yaw_deg))
-            idxs, emask, omask = selection_by_dir[dir_idx]
-            metrics = refine_iter(
-                edit_attn, obj_attn, text_by_dir[dir_idx], rotation, translation.reshape(3, 1), idxs, emask, omask,
-                generator=generator, t=None if t is None else int(t[i]),
-                noise=None if noise is None else noise[i], vae_eps=None if vae_eps is None else vae_eps[i],
-            )
-            metrics["dir_idx"] = dir_idx
+            with tracing.span("step"):
+                with tracing.span("draw"):
+                    if poses is None:
+                        rotation, translation, pitch_deg, yaw_deg = random_pose(generator, radius, device=dev)
+                    else:
+                        rotation, translation, pitch_deg, yaw_deg = (
+                            torch.as_tensor(x[i], dtype=torch.float32, device=dev) for x in poses)
+                    dir_idx = direction_index(float(tracing.scalar(pitch_deg, "draw.pitch")),
+                                              float(tracing.scalar(yaw_deg, "draw.yaw")))
+                idxs, emask, omask = selection_by_dir[dir_idx]
+                metrics = refine_iter(
+                    edit_attn, obj_attn, text_by_dir[dir_idx], rotation, translation.reshape(3, 1), idxs, emask,
+                    omask, generator=generator, t=None if t is None else int(t[i]),
+                    noise=None if noise is None else noise[i], vae_eps=None if vae_eps is None else vae_eps[i],
+                )
+                metrics["dir_idx"] = dir_idx
         return metrics
 
     return multi
@@ -313,7 +320,8 @@ def make_attn_train_step(
         optimizer_object.zero_grad(set_to_none=True)
         loss_e, attn_l_e, tv_e = grid_loss(edit_attn, rays, edit_map, generator, t_rand_edit)
         loss_o, attn_l_o, tv_o = grid_loss(obj_attn, rays, obj_map, generator, t_rand_object)
-        (loss_e + loss_o).backward()
+        with tracing.span("backward"):
+            (loss_e + loss_o).backward()
         metrics = dict(
             attn_loss_edit=attn_l_e, tv_loss_edit=tv_e, total_loss_edit=attn_l_e + tv_e * attn_tv_weight,
             attn_loss_object=attn_l_o, tv_loss_object=tv_o, total_loss_object=attn_l_o + tv_o * attn_tv_weight,

@@ -70,6 +70,7 @@ from voxe_tpu_torch.train.recon import (
     optimizer_step,
     warp_dataset_to_base,
 )
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.camera import CameraPose, direction_index, get_random_pose, random_pose
 from voxe_tpu_torch.utils.constants import CAMERA_BOUNDS, CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from voxe_tpu_torch.utils.logging import log
@@ -111,6 +112,7 @@ def replicated_share(mesh) -> float:
     return 1.0 if mesh is None or mesh.rank == 0 else 0.0
 
 
+@tracing.traced("loss")
 def _regularize(
     grid: VoxelGrid,
     ref_densities,
@@ -404,23 +406,28 @@ def make_sds_train_multi_step(
         dev = grid.densities.device
         metrics = {}
         for i in range(steps_per_call):
-            rotation, translation, pitch_deg, yaw_deg = random_pose(generator, radius, device=dev)
-            dir_idx = direction_index(float(pitch_deg), float(yaw_deg))
-            t_lo, t_hi = int(t_bounds[i, 0]), int(t_bounds[i, 1])
-            t = int(torch.randint(t_lo, t_hi + 1, (), generator=generator, device=generator.device))
-            if use_shear_warp:
-                metrics = step(
-                    grid, text_by_dir[dir_idx], rotation, translation,
-                    ref_densities, ref_features, t, generator=generator,
-                )
-            else:
-                rays = flatten_rays(cast_rays(intrinsics, rotation, translation))
-                pixels = torch.zeros((im_h * im_w, 3), device=dev)
-                metrics = step(
-                    grid, text_by_dir[dir_idx], rays, pixels, ref_densities, ref_features, t, generator=generator,
-                )
-            metrics["dir_idx"] = dir_idx
-            metrics["t"] = t
+            with tracing.span("step"):
+                with tracing.span("draw"):
+                    rotation, translation, pitch_deg, yaw_deg = random_pose(generator, radius, device=dev)
+                    dir_idx = direction_index(float(tracing.scalar(pitch_deg, "draw.pitch")),
+                                              float(tracing.scalar(yaw_deg, "draw.yaw")))
+                    t_lo, t_hi = int(t_bounds[i, 0]), int(t_bounds[i, 1])
+                    t = int(tracing.scalar(
+                        torch.randint(t_lo, t_hi + 1, (), generator=generator, device=generator.device), "draw.t"))
+                if use_shear_warp:
+                    metrics = step(
+                        grid, text_by_dir[dir_idx], rotation, translation,
+                        ref_densities, ref_features, t, generator=generator,
+                    )
+                else:
+                    rays = flatten_rays(cast_rays(intrinsics, rotation, translation))
+                    pixels = torch.zeros((im_h * im_w, 3), device=dev)
+                    metrics = step(
+                        grid, text_by_dir[dir_idx], rays, pixels, ref_densities, ref_features, t,
+                        generator=generator,
+                    )
+                metrics["dir_idx"] = dir_idx
+                metrics["t"] = t
         return metrics
 
     return multi_step

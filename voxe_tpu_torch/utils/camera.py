@@ -18,6 +18,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from voxe_tpu_torch.utils import tracing
+
 
 class CameraIntrinsics(NamedTuple):
     height: int
@@ -85,8 +87,8 @@ def pose_from_angles(
          torch.stack([zero, zero, one])]
     )
     rotation = rot_yaw @ rot_pitch
-    translation = rotation @ torch.tensor(
-        [[0.0], [0.0], [radius]], dtype=rotation.dtype, device=rotation.device
+    translation = rotation @ tracing.upload(
+        [[0.0], [0.0], [radius]], "draw.pose", dtype=rotation.dtype, device=rotation.device
     )
     return rotation, translation
 

@@ -1,0 +1,140 @@
+"""Program spans and the host-sync counter.
+
+`span(name)` marks one layer's work: the shear-warp render, SD's VAE encode,
+UNet and token maps, a trainer step and its draw, loss, backward and
+optimizer parts. It costs two flag reads when nothing listens. Under
+`torch.profiler` it enters `record_function("voxe." + name)`, so the span
+lands in the Chrome trace on the device operations' clock and every kernel
+and idle gap can be laid to it; with recording on (`record(True)`) it also
+appends (name, parent index, t0 ns, t1 ns) on the host's `perf_counter_ns`
+clock, which `take()` hands over. Spans are entered from the thread that
+drives the step.
+
+Each call on a step's path that makes the host wait for the card goes
+through `scalar(x, site)` (a device value read on the host), `upload(values,
+site)` (host values copied to the card: a blocking copy from pageable
+memory, which waits for the stream to drain) or, for a library call that
+reads a device value inside, `synced(site, fn)`. Each counts one in `SYNCS`,
+adds the host time it took to `SYNC_NS` and runs inside
+`span("sync." + site)`. The counters follow the launch counters' convention
+(`ops/flash_attention.py::LAUNCHES`): always counted, never reset by the
+program, read as deltas.
+"""
+from __future__ import annotations
+
+import functools
+import time
+from typing import List, Tuple
+
+import torch
+
+SYNCS = 0  # calls made through `synced`, `scalar` and `upload`
+SYNC_NS = 0  # host nanoseconds spent inside them
+
+_recording = False
+_records: List[list] = []  # [name, parent index or -1, t0 ns, t1 ns]
+_open: List[int] = []  # indices into _records of the spans entered and not left
+
+
+class _Null:
+    """The shared context of a span nobody listens to."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL = _Null()
+
+
+class _Span:
+    __slots__ = ("name", "annotation", "index")
+
+    def __init__(self, name: str, annotation):
+        self.name, self.annotation, self.index = name, annotation, -1
+
+    def __enter__(self):
+        if self.annotation is not None:
+            self.annotation.__enter__()
+        if _recording:
+            self.index = len(_records)
+            _records.append([self.name, _open[-1] if _open else -1, time.perf_counter_ns(), 0])
+            _open.append(self.index)
+        return None
+
+    def __exit__(self, *exc):
+        if self.index >= 0:
+            _records[self.index][3] = time.perf_counter_ns()
+            _open.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager for the layer `name`: `NULL` unless a profiler runs
+    or recording is on."""
+    profiling = torch.autograd._profiler_enabled()
+    if not (profiling or _recording):
+        return NULL
+    return _Span(name, torch.profiler.record_function("voxe." + name) if profiling else None)
+
+
+def traced(name: str):
+    """Decorator: the whole call inside `span(name)`."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
+
+
+def record(on: bool) -> None:
+    """Turn the host-clock recording of spans on or off."""
+    global _recording
+    _recording = bool(on)
+
+
+def take() -> List[Tuple[str, int, int, int]]:
+    """The spans recorded so far, as (name, parent index, t0 ns, t1 ns), and
+    clear them. Call it between steps, with no span open."""
+    if _open:
+        raise RuntimeError(f"take() inside the open span {_records[_open[-1]][0]!r}")
+    out = [tuple(r) for r in _records]
+    _records.clear()
+    return out
+
+
+def synced(site: str, fn):
+    """`fn()`, a call that makes the host wait for the card once."""
+    global SYNCS, SYNC_NS
+    SYNCS += 1
+    t0 = time.perf_counter_ns()
+    with span("sync." + site):
+        out = fn()
+    SYNC_NS += time.perf_counter_ns() - t0
+    return out
+
+
+def scalar(x: torch.Tensor, site: str):
+    """`x.item()` for a 0-d tensor, else `x.cpu()`: a device value read on
+    the host."""
+    return synced(site, x.item if x.dim() == 0 else x.cpu)
+
+
+def upload(values, site: str, *, dtype=None, device=None) -> torch.Tensor:
+    """`torch.as_tensor(values, dtype=dtype, device=device)`, counted for
+    host values (numbers, lists, arrays, CPU tensors); a tensor already on a
+    card passes through uncounted."""
+    if isinstance(values, torch.Tensor) and values.device.type != "cpu":
+        return torch.as_tensor(values, dtype=dtype, device=device)
+    return synced(site, lambda: torch.as_tensor(values, dtype=dtype, device=device))
