@@ -190,3 +190,51 @@ def test_sync_readers_read_the_program_counters(metric, kind, monkeypatch):
     values = _counter_values(counters, before, _snapshot(counters))
     assert set(values.values()) == {0} and not syncs.present()
     assert module.read(Trace([], 0.0, 0.0, 3, 1.0, values, {}, {})) is None
+
+
+@pytest.mark.parametrize("kind", ["edit", "refine"])
+def test_unet_replay_readers_read_the_program_counters(kind, monkeypatch):
+    from portbench.lib.manifest import Cell, counters_of, reader
+    from portbench.lib.trace import Trace
+    from portbench.metrics.lib import unet_graph
+    from portbench.run import _counter_values, _snapshot
+    from voxe_tpu_torch.utils import tracing
+
+    name = f"unet_replay_pct.{kind}"
+    assert name in {m["name"] for m in Cell(CELL_OF[kind]).per_layer()}
+    assert name not in {m["name"] for m in Cell("recon-160").per_layer()}
+    module = reader(name)
+    counters = counters_of({name: module})
+
+    def read(calls, replays):
+        before = _snapshot(counters)
+        monkeypatch.setattr(tracing, "UNET_CALLS", tracing.UNET_CALLS + calls)
+        monkeypatch.setattr(tracing, "UNET_REPLAYS", tracing.UNET_REPLAYS + replays)
+        values = _counter_values(counters, before, _snapshot(counters))
+        assert values == {"unet_calls": calls, "unet_replays": replays}
+        return module.read(Trace([], 0.0, 0.0, 5, 1.0, values, {}, {}))
+
+    assert read(5, 5) == 100.0
+    assert read(4, 3) == 75.0
+    assert read(0, 0) is None  # no UNet call in the window
+
+    def read_absent():
+        before = _snapshot(counters)
+        values = _counter_values(counters, before, _snapshot(counters))
+        assert set(values.values()) == {0} and not unet_graph.present()
+        return module.read(Trace([], 0.0, 0.0, 5, 1.0, values, {}, {}))
+
+    # the commit before the counters: its tracing module lacks them
+    monkeypatch.delattr(tracing, "UNET_REPLAYS")
+    assert read_absent() is None
+
+    # a program without the tracing module
+    real = unet_graph.importlib.import_module
+
+    def missing(mod):
+        if mod == unet_graph.MODULE:
+            raise ModuleNotFoundError(mod)
+        return real(mod)
+
+    monkeypatch.setattr(unet_graph.importlib, "import_module", missing)
+    assert read_absent() is None

@@ -8,6 +8,10 @@ thre3d_atom/thre3d_reprs/sd.py:20-385).
   the latents.
 * UNet and VAE run in bf16 by default; latents and the SDS arithmetic stay
   f32. The UNet runs under `torch.no_grad()` (the JAX stop_gradient).
+* On the card, the UNet pass without the probs-edit hook replays a CUDA
+  graph of itself (`unet_noise_pred`): the pass is over a thousand small
+  launches on fixed shapes, and dispatching them one by one takes the host
+  several times the card's time.
 * Weights come from a local HF snapshot (`weights_dir`, read by
   `weights.load_sd_params`, with the BPE `CLIPTokenizer` from its
   `tokenizer/`), or are seeded random ("random") or zeros ("zeros") with the
@@ -43,6 +47,7 @@ from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer, get
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
+from voxe_tpu_torch.ops import flash_attention as fa
 from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.logging import log
 from voxe_tpu_torch.utils.timing import FrameClock
@@ -65,6 +70,67 @@ class SpecifyGradient(torch.autograd.Function):
 
 def specify_gradient(latents, gt_grad):
     return SpecifyGradient.apply(latents, gt_grad)
+
+
+def _memory_format(x: torch.Tensor) -> torch.memory_format:
+    """channels_last for a 4-D tensor laid out so (and not also plainly
+    contiguous), else contiguous_format."""
+    channels_last = x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last)
+    return torch.channels_last if channels_last and not x.is_contiguous() else torch.contiguous_format
+
+
+def unet_replays(latents_in: torch.Tensor, attn_edit_fn) -> bool:
+    """Whether a no-grad UNet call runs as a CUDA graph's replay: on the
+    card, without the probs-edit hook (a Python callable, which may do host
+    work on every call)."""
+    return latents_in.device.type == "cuda" and attn_edit_fn is None
+
+
+def unet_graph_key(latents_in: torch.Tensor, text_embeddings: torch.Tensor, capture_attn: bool) -> tuple:
+    """The signature a captured UNet call is replayed under: all that its
+    kernels depend on besides the values of the latents, t and the text
+    embeddings. Those are the inputs' shapes and dtypes, the latents' memory
+    format, the capture flag and the device, and the float32 matmul
+    precision (the time embedding's and the capture path's products are
+    float32: a graph keeps the kernels its capture chose)."""
+    return (
+        tuple(latents_in.shape), latents_in.dtype, _memory_format(latents_in),
+        tuple(text_embeddings.shape), text_embeddings.dtype, bool(capture_attn), latents_in.device,
+        torch.get_float32_matmul_precision(),
+    )
+
+
+def _map_outputs(fn, outputs):
+    """`fn` over a UNet call's output tensors (the prediction; with capture,
+    each (tag, map)'s map), in their structure."""
+    if isinstance(outputs, tuple):
+        out, store = outputs
+        return fn(out), [(tag, fn(m)) for tag, m in store]
+    return fn(outputs)
+
+
+class _UNetGraph:
+    """One captured no-grad UNet call: the static inputs it reads (the
+    latents, t as a 0-d int64 tensor on the card, the text embeddings), the
+    outputs it writes and the flash forward launches a replay runs."""
+
+    def __init__(self, latents_in: torch.Tensor, text_embeddings: torch.Tensor):
+        dev = latents_in.device
+        self.latents = torch.empty(
+            latents_in.shape, dtype=latents_in.dtype, device=dev, memory_format=_memory_format(latents_in)
+        )
+        self.t = torch.zeros((), dtype=torch.long, device=dev)
+        self.text = torch.empty(text_embeddings.shape, dtype=text_embeddings.dtype, device=dev)
+        self.graph = torch.cuda.CUDAGraph()
+        self.outputs = None
+        self.flash_launches = 0
+
+    def fill(self, latents_in, t, text_embeddings) -> None:
+        """The call's inputs into the static ones: copies and a fill, which
+        the card runs in order and the host does not wait for."""
+        self.latents.copy_(latents_in)
+        self.t.fill_(t)
+        self.text.copy_(text_embeddings)
 
 
 @torch.no_grad()
@@ -139,6 +205,8 @@ class StableDiffusion:
             raise ValueError(f"init_mode {init_mode!r}: 'random' or 'zeros'")
         self._place()
         self._text_embed_cache: Dict[str, torch.Tensor] = {}
+        # the side stream of every capture: cuBLAS keeps a workspace for each stream it runs on
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
     def _place(self) -> None:
         memory_format = (
@@ -149,6 +217,8 @@ class StableDiffusion:
         self.unet.to(self.device, self.unet_dtype, memory_format=memory_format)
         for m in (self.clip, self.vae, self.unet):
             m.eval().requires_grad_(False)
+        # a captured UNet call reads the parameters where they were: drop them all
+        self._unet_graphs: Dict[tuple, _UNetGraph] = {}
 
     def load_flax_params(self, params: Mapping) -> None:
         """Load a JAX parameter tree {"clip", "vae", "unet"} (numpy leaves)."""
@@ -226,7 +296,29 @@ class StableDiffusion:
     def unet_noise_pred(self, latents_in, t, text_embeddings, capture_attn: bool = False, attn_edit_fn=None):
         """UNet call on [2B, 4, h, w] (CFG batch) -> f32 noise prediction;
         with `capture_attn`, (prediction, captured (tag, [2B, Q, K]) maps).
-        `attn_edit_fn` is the UNet's probs-edit hook."""
+        `attn_edit_fn` is the UNet's probs-edit hook.
+
+        On the card without the hook (`unet_replays`) the call runs as a CUDA
+        graph, one for each signature (`unet_graph_key`): a signature's
+        first call is captured (`_capture_unet`); each later one fills the
+        graph's static inputs, replays it and returns copies of its outputs,
+        which the next replay does not overwrite. Elsewhere it runs eagerly.
+        Either way the same kernels compute the same values."""
+        tracing.UNET_CALLS += 1
+        if not unet_replays(latents_in, attn_edit_fn):
+            return self._unet_eager(latents_in, t, text_embeddings, capture_attn, attn_edit_fn)
+        key = unet_graph_key(latents_in, text_embeddings, capture_attn)
+        captured = self._unet_graphs.get(key)
+        if captured is None:
+            return self._capture_unet(key, latents_in, t, text_embeddings, capture_attn)
+        captured.fill(latents_in, t, text_embeddings)
+        captured.graph.replay()
+        fa.count_replayed(captured.flash_launches)
+        tracing.UNET_REPLAYS += 1
+        return _map_outputs(torch.clone, captured.outputs)
+
+    def _unet_eager(self, latents_in, t, text_embeddings, capture_attn: bool, attn_edit_fn=None):
+        """The UNet call dispatched operator by operator."""
         x = latents_in.to(self.unet_dtype)
         if self.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
@@ -235,6 +327,33 @@ class StableDiffusion:
             x, t, text_embeddings.to(self.unet_dtype), attn_store=store, attn_edit_fn=attn_edit_fn
         ).float()
         return (out, store) if capture_attn else out
+
+    def _capture_unet(self, key: tuple, latents_in, t, text_embeddings, capture_attn: bool):
+        """A signature's first call: an eager warm-up pass on a side stream
+        from the static inputs, so that cuDNN's, cuBLAS's and the flash
+        kernel's one-time set-up happens outside the capture, then the
+        capture on that stream into the graph's own memory pool. Returns the
+        warm-up's output: the call runs the UNet's kernels once, as every
+        call does. t reaches the UNet as a tensor on the card, so no host
+        copy is captured."""
+        captured = _UNetGraph(latents_in, text_embeddings)
+        captured.fill(latents_in, t, text_embeddings)
+        main = torch.cuda.current_stream(latents_in.device)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(latents_in.device)
+        side = self._capture_stream
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warm = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
+        recorded = fa.CAPTURED
+        # thread_local: another thread's CUDA call (NCCL's watchdog, a loader's pinned copy) cannot void the capture
+        with torch.cuda.graph(captured.graph, stream=side, capture_error_mode="thread_local"):
+            captured.outputs = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
+        captured.flash_launches = fa.CAPTURED - recorded
+        main.wait_stream(side)
+        _map_outputs(lambda x: x.record_stream(main), warm)  # made on the side stream, read on the main one
+        self._unet_graphs[key] = captured
+        return warm
 
     def _draws(self, given, batch: int, generator, dev):
         """A [B, 4, h, w] draw: `given` ([B, h, w, 4] NHWC) replayed, else

@@ -24,8 +24,10 @@ LSE. The backward is three launches (`backward_kernels`): a preprocess that
 computes Di = rowsum(dO * O) and pads Di and the LSE to the query tile, one
 pass that computes dK, dV and dQ's partial sums (reduced into an f32
 workspace in tile order), and a postprocess that turns the workspace into dq.
-`LAUNCHES` counts forward kernel launches and `LAUNCHES_BWD` backward calls
-(one a call, whatever its three launches), and nothing else;
+`LAUNCHES` counts forward kernel launches that ran and `LAUNCHES_BWD`
+backward calls (one a call, whatever its three launches), and nothing else:
+a forward launch recorded into a CUDA graph counts in `CAPTURED` instead,
+and in `LAUNCHES` each time the graph's replay runs it (`count_replayed`);
 `REFERENCE_ON_CUDA` counts calls of a plain version on a CUDA tensor, which
 no path of the port makes (the UNet's other attention goes to the library's
 SDPA).
@@ -54,7 +56,8 @@ _LIB_BWD = CudaLibrary(
 # which refuses any other): Di, the LSE and the dQ workspace are padded to it.
 BWD_Q_TILE = {64: 128, 128: 64}
 BWD_DQ_CHUNK = 64  # a tile's dQ workspace holds 64 x 64 chunks, each in the kernel's register order
-LAUNCHES = 0  # forward kernel launches since import (or the last reset)
+LAUNCHES = 0  # forward kernel launches that ran since import (or the last reset)
+CAPTURED = 0  # forward launches recorded into a CUDA graph since import (or the last reset)
 # backward calls since import (or the last reset); each is three kernel
 # launches (preprocess, main pass, postprocess) and counts once
 LAUNCHES_BWD = 0
@@ -62,8 +65,15 @@ REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import (or t
 
 
 def reset_launches() -> None:
-    global LAUNCHES, LAUNCHES_BWD, REFERENCE_ON_CUDA
-    LAUNCHES = LAUNCHES_BWD = REFERENCE_ON_CUDA = 0
+    global LAUNCHES, CAPTURED, LAUNCHES_BWD, REFERENCE_ON_CUDA
+    LAUNCHES = CAPTURED = LAUNCHES_BWD = REFERENCE_ON_CUDA = 0
+
+
+def count_replayed(n: int) -> None:
+    """Count the `n` forward launches that a CUDA graph's replay ran (the
+    launches its capture recorded in `CAPTURED`)."""
+    global LAUNCHES
+    LAUNCHES += n
 
 
 def build(verbose: bool = False):
@@ -186,8 +196,11 @@ def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, CAPTURED
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 

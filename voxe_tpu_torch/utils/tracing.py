@@ -18,7 +18,9 @@ reads a device value inside, `synced(site, fn)`. Each counts one in `SYNCS`,
 adds the host time it took to `SYNC_NS` and runs inside
 `span("sync." + site)`. The counters follow the launch counters' convention
 (`ops/flash_attention.py::LAUNCHES`): always counted, never reset by the
-program, read as deltas.
+program, read as deltas. So do `UNET_CALLS`, the calls of SD's no-grad
+UNet pass (`StableDiffusion.unet_noise_pred`), and `UNET_REPLAYS`, those of
+them that replayed a CUDA graph of the pass instead of dispatching it.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import torch
 
 SYNCS = 0  # calls made through `synced`, `scalar` and `upload`
 SYNC_NS = 0  # host nanoseconds spent inside them
+UNET_CALLS = 0  # calls of StableDiffusion.unet_noise_pred
+UNET_REPLAYS = 0  # of those, the calls that replayed a CUDA graph
 
 _recording = False
 _records: List[list] = []  # [name, parent index or -1, t0 ns, t1 ns]
