@@ -218,13 +218,16 @@ FLASH_REL_TOL = 2e-2
 MAIN_SHAPE = (2, 4096, 5, 64)  # SD 2.x 64x64 level, CFG batch 2
 LEVEL32_SHAPE = (2, 1024, 10, 64)  # the 32x32 level, below the gate (timed only)
 D128_SHAPE = (2, 4096, 5, 128)  # d = 128 at the main length (timed only; no SD 2.x level has it)
+XL_SHAPE = (2, 4096, 10, 64)  # SDXL's 64x64 level, CFG batch 2 (the edit-sdxl cell's 10 calls a pass)
 # (q shape, key length or None for Lq, q scale): the main shape; a ragged
 # d=128 shape; peaked scores (std 4) so the running max moves between key
 # tiles and the rescale matters; B = 2 with a ragged length, which catches a
-# tile that reads across batches; Lq != Lk; d = 128 at the main length
+# tile that reads across batches; Lq != Lk; d = 128 at the main length;
+# SDXL's shape, plain and with peaked scores
 CHECKS = (
     (MAIN_SHAPE, None, 1.0), ((1, 2500, 2, 128), None, 1.0), ((1, 1000, 3, 64), None, 4.0),
     ((2, 1000, 3, 64), None, 1.0), (MAIN_SHAPE, 1000, 1.0), (D128_SHAPE, None, 1.0),
+    (XL_SHAPE, None, 1.0), (XL_SHAPE, None, 4.0),
 )
 STEPS_PER_CALL, TIMED_CALLS = 3, 8
 GRID_RES, BASE, SD_VERSION = 160, lane_aligned_res(400), "2.0"
@@ -1127,6 +1130,8 @@ def write_hf_snapshot(sd: StableDiffusion, root: Path) -> None:
     sd2 = sd.config.version.startswith("2")
     for name, sub in sd_weights.HF_SUBFOLDERS.items():
         module = getattr(sd, name)
+        if module is None:  # SDXL's second tower, absent from SD 1.x / 2.x
+            continue
         names = sd_weights.hf_names(module, sd_weights.NAME_FNS[name])
         tensors = {}
         for key, t in module.state_dict().items():

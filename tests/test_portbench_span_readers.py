@@ -149,7 +149,7 @@ def test_the_span_tool_on_a_small_cell_on_the_cpu():
     assert len(with_spans) == len(without) == 2
 
 
-CELL_OF = {"edit": "edit-sd2", "refine": "refine-sd14", "recon": "recon-160"}
+CELL_OF = {"edit": "edit-sd2", "refine": "refine-sd14", "recon": "recon-160", "xl": "edit-sdxl"}
 
 
 @pytest.mark.parametrize("metric", ["host_syncs_per_step", "sync_wait_ms"])

@@ -8,7 +8,8 @@ argparse, plus `--device`).
         -d scene [--sd_weights_dir sd2_snapshot] [--device cpu]
 
 `--sd_weights_dir` points at a local HF snapshot (text_encoder/, vae/,
-unet/, tokenizer/); without it the SD weights are seeded random.
+unet/, tokenizer/; for `--sd_version xl` also text_encoder_2/ and, when
+present, tokenizer_2/); without it the SD weights are seeded random.
 `--do_refinement True` then refines the edit on SD 1.4 (`-eidx` names the
 edit tokens; `--sd_refine_weights_dir` is the 1.4 snapshot, required when
 `--sd_weights_dir` is given), writing `model_final_refined.pth`;
@@ -114,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     a("--l1_mode", type=_bool, default=False)
     a("--post_process_scc", type=_bool, default=False)
     a("--sd_weights_dir", default=None, help="local HF snapshot of the SD weights; seeded random without it")
-    a("--sd_version", default="2.0")
+    a("--sd_version", default="2.0", help="2.0, 2.1, 1.4, 1.5, xl (SDXL base 1.0 at 1024^2) or tiny")
     a("--sd_refine_weights_dir", default=None, help="refinement: SD 1.4 snapshot")
     a("--steps_per_call", type=int, default=1)
     a("--multihost", type=_bool, default=False)

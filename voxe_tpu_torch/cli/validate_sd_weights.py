@@ -61,7 +61,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[np.ndarray]:
     check_device(config.device)
     weights_dir = Path(config.weights_dir) if config.weights_dir else None
     sd = StableDiffusion(config.sd_version, weights_dir=weights_dir, device=config.device)
-    n_params = sum(p.numel() for m in (sd.clip, sd.vae, sd.unet) for p in m.parameters())
+    n_params = sum(p.numel() for m in sd.networks() for p in m.parameters())
     log.info(f"conversion OK: {n_params / 1e6:.1f}M parameters loaded")
     log.info(f"tokenizer: {type(sd.tokenizer).__name__}")
     ids = sd.tokenizer("a photo of a dog")[0]

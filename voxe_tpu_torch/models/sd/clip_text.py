@@ -1,9 +1,15 @@
 """CLIP text encoder (counterpart of voxe_tpu/models/sd/clip_text.py):
 pre-LayerNorm transformer with a causal mask. Submodule names follow the
-flax module names so `weights.from_flax_params` maps parameters directly."""
+flax module names so `weights.from_flax_params` maps parameters directly.
+
+SDXL reads its towers differently (`penultimate_and_pooled`): the context is
+the hidden states after the second-to-last layer, with no final LayerNorm
+(transformers' `hidden_states[-2]`), and the second tower's pooled output is
+the final LayerNorm's row at the first EOS token times `text_projection`."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -65,15 +71,38 @@ class CLIPTextModel(nn.Module):
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layers_{i}", CLIPEncoderLayer(cfg))
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """input_ids [B, T] -> final-layer hidden states [B, T, D]."""
+    def _layers(self, input_ids: torch.Tensor, hidden=None, start: int = 0, stop: Optional[int] = None):
+        """The encoder layers [start, stop) on `hidden` (the token and
+        position embeddings of `input_ids` when None)."""
         T = input_ids.shape[-1]
-        positions = torch.arange(T, device=input_ids.device)
-        hidden = self.token_embedding(input_ids) + self.position_embedding(positions)[None]
+        if hidden is None:
+            positions = torch.arange(T, device=input_ids.device)
+            hidden = self.token_embedding(input_ids) + self.position_embedding(positions)[None]
         causal_mask = torch.triu(
             torch.full((T, T), float("-inf"), dtype=hidden.dtype, device=hidden.device), 1
         )
-        for i in range(self.config.num_hidden_layers):
+        for i in range(start, self.config.num_hidden_layers if stop is None else stop):
             hidden = getattr(self, f"layers_{i}")(hidden, causal_mask)
-        return self.final_layer_norm(hidden)
+        return hidden
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids [B, T] -> final-layer hidden states [B, T, D]."""
+        return self.final_layer_norm(self._layers(input_ids))
+
+    def penultimate_and_pooled(self, input_ids: torch.Tensor):
+        """input_ids [B, T] -> (hidden states after the second-to-last layer,
+        unnormalised [B, T, D]; the projected pooled output [B, P], or None
+        without `text_projection`, in which case the last layer is not run).
+        The pooled row is the first EOS token's: the EOS id is the
+        vocabulary's largest, so it is the ids' first argmax, as
+        transformers takes it."""
+        n = self.config.num_hidden_layers
+        penultimate = self._layers(input_ids, stop=n - 1)
+        if self.config.projection_dim is None:
+            return penultimate, None
+        final = self.final_layer_norm(self._layers(input_ids, penultimate, start=n - 1))
+        rows = torch.arange(final.shape[0], device=final.device)
+        return penultimate, self.text_projection(final[rows, input_ids.argmax(dim=-1)])

@@ -28,11 +28,18 @@ thre3d_atom/thre3d_reprs/sd.py:20-385).
   `prompt_to_img`.
 * `train_step` / `scoreDistillationLoss.training_step` are the reference's
   host API over `sds_loss` (schedule update, t draw, the loss).
+* SDXL ("xl", the port's own) conditions on a text record, `SDXLText`: the
+  two towers' penultimate states side by side (the context), the second
+  tower's projected pooled row and the micro-conditioning time ids. An
+  empty negative prompt is zeros (the published pipeline's
+  `force_zeros_for_empty_prompt`). Everywhere a text embedding goes, SDXL's
+  record goes instead; the UNet's CUDA graph takes each of its tensors as a
+  static input that every replay fills.
 """
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -72,6 +79,54 @@ def specify_gradient(latents, gt_grad):
     return SpecifyGradient.apply(latents, gt_grad)
 
 
+class SDXLText(NamedTuple):
+    """SDXL's text conditioning, rows in the CFG order (unconditional,
+    conditional) behind any leading dims: the context [..., 77, 2048], the
+    pooled rows [..., 1280] and the time ids [..., 6]."""
+
+    context: torch.Tensor
+    pooled: torch.Tensor
+    time_ids: torch.Tensor
+
+
+TextEmbeddings = Union[torch.Tensor, SDXLText]
+
+
+def map_text(fn, text: TextEmbeddings) -> TextEmbeddings:
+    """`fn` over a text embedding's tensors: the tensor itself, or each of
+    an SDXL record's."""
+    return SDXLText(*(fn(x) for x in text)) if isinstance(text, SDXLText) else fn(text)
+
+
+def text_leaves(text: TextEmbeddings) -> tuple:
+    """A text embedding's tensors, in order."""
+    return tuple(text) if isinstance(text, SDXLText) else (text,)
+
+
+def select_text(text: TextEmbeddings, index) -> TextEmbeddings:
+    """Row `index` of a stack of text embeddings (the multi-step's
+    direction table)."""
+    return map_text(lambda x: x[index], text)
+
+
+def stack_text(texts: Sequence[TextEmbeddings]) -> TextEmbeddings:
+    """Text embeddings stacked on a new first dim."""
+    if isinstance(texts[0], SDXLText):
+        return SDXLText(*(torch.stack(parts) for parts in zip(*texts)))
+    return torch.stack(list(texts))
+
+
+def empty_negative_pairs(cond: SDXLText) -> SDXLText:
+    """[N, ...] conditional rows -> [N, 2, ...] (unconditional, conditional)
+    pairs whose unconditional context and pooled row are zeros, SDXL's
+    empty negative prompt; both rows carry the same time ids."""
+    return SDXLText(
+        torch.stack([torch.zeros_like(cond.context), cond.context], dim=1),
+        torch.stack([torch.zeros_like(cond.pooled), cond.pooled], dim=1),
+        torch.stack([cond.time_ids, cond.time_ids], dim=1),
+    )
+
+
 def _memory_format(x: torch.Tensor) -> torch.memory_format:
     """channels_last for a 4-D tensor laid out so (and not also plainly
     contiguous), else contiguous_format."""
@@ -86,17 +141,18 @@ def unet_replays(latents_in: torch.Tensor, attn_edit_fn) -> bool:
     return latents_in.device.type == "cuda" and attn_edit_fn is None
 
 
-def unet_graph_key(latents_in: torch.Tensor, text_embeddings: torch.Tensor, capture_attn: bool) -> tuple:
+def unet_graph_key(latents_in: torch.Tensor, text_embeddings: TextEmbeddings, capture_attn: bool) -> tuple:
     """The signature a captured UNet call is replayed under: all that its
     kernels depend on besides the values of the latents, t and the text
-    embeddings. Those are the inputs' shapes and dtypes, the latents' memory
+    embeddings. Those are the inputs' shapes and dtypes (each tensor of an
+    SDXL text record: context, pooled rows, time ids), the latents' memory
     format, the capture flag and the device, and the float32 matmul
     precision (the time embedding's and the capture path's products are
     float32: a graph keeps the kernels its capture chose)."""
     return (
         tuple(latents_in.shape), latents_in.dtype, _memory_format(latents_in),
-        tuple(text_embeddings.shape), text_embeddings.dtype, bool(capture_attn), latents_in.device,
-        torch.get_float32_matmul_precision(),
+        type(text_embeddings).__name__, *((tuple(x.shape), x.dtype) for x in text_leaves(text_embeddings)),
+        bool(capture_attn), latents_in.device, torch.get_float32_matmul_precision(),
     )
 
 
@@ -111,26 +167,29 @@ def _map_outputs(fn, outputs):
 
 class _UNetGraph:
     """One captured no-grad UNet call: the static inputs it reads (the
-    latents, t as a 0-d int64 tensor on the card, the text embeddings), the
-    outputs it writes and the flash forward launches a replay runs."""
+    latents, t as a 0-d int64 tensor on the card, the text embeddings, or
+    each tensor of an SDXL text record), the outputs it writes, and the
+    flash forward launches and self-attention FLOPs a replay runs."""
 
-    def __init__(self, latents_in: torch.Tensor, text_embeddings: torch.Tensor):
+    def __init__(self, latents_in: torch.Tensor, text_embeddings: TextEmbeddings):
         dev = latents_in.device
         self.latents = torch.empty(
             latents_in.shape, dtype=latents_in.dtype, device=dev, memory_format=_memory_format(latents_in)
         )
         self.t = torch.zeros((), dtype=torch.long, device=dev)
-        self.text = torch.empty(text_embeddings.shape, dtype=text_embeddings.dtype, device=dev)
+        self.text = map_text(lambda x: torch.empty(x.shape, dtype=x.dtype, device=dev), text_embeddings)
         self.graph = torch.cuda.CUDAGraph()
         self.outputs = None
         self.flash_launches = 0
+        self.attn_flops: Dict[str, int] = {}
 
     def fill(self, latents_in, t, text_embeddings) -> None:
         """The call's inputs into the static ones: copies and a fill, which
         the card runs in order and the host does not wait for."""
         self.latents.copy_(latents_in)
         self.t.fill_(t)
-        self.text.copy_(text_embeddings)
+        for static, given in zip(text_leaves(self.text), text_leaves(text_embeddings)):
+            static.copy_(given)
 
 
 @torch.no_grad()
@@ -183,9 +242,12 @@ class StableDiffusion:
         )
         self.alphas = self.scheduler.alphas_cumprod
         self.tokenizer = HashTokenizer(config.clip.vocab_size)
+        self.tokenizer_2 = self.tokenizer  # SDXL's second tower's; a snapshot may bring its own
 
         with self.device:  # build in place: no host copy of 1.3B parameters
             self.clip = CLIPTextModel(config.clip)
+            # SDXL's second text tower (OpenCLIP bigG, pooled projection)
+            self.clip_2 = CLIPTextModel(config.clip_2) if config.clip_2 is not None else None
             self.vae = AutoencoderKL(config.vae)
             self.unet = UNet2DConditionModel(config.unet)
         if weights_dir is not None:
@@ -193,12 +255,14 @@ class StableDiffusion:
             for name, state in params.items():
                 getattr(self, name).load_state_dict(state, strict=True)
             self.tokenizer = CLIPTokenizer(Path(weights_dir) / "tokenizer")
+            second = Path(weights_dir) / "tokenizer_2"  # SDXL's, which pads otherwise
+            self.tokenizer_2 = CLIPTokenizer(second) if second.is_dir() else self.tokenizer
         elif init_mode == "random":
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            for m in (self.clip, self.vae, self.unet):
+            for m in self.networks():
                 _random_init_(m, gen)
         elif init_mode == "zeros":
-            for m in (self.clip, self.vae, self.unet):
+            for m in self.networks():
                 for p in m.parameters():
                     p.data.zero_()
         else:
@@ -208,14 +272,21 @@ class StableDiffusion:
         # the side stream of every capture: cuBLAS keeps a workspace for each stream it runs on
         self._capture_stream: Optional[torch.cuda.Stream] = None
 
+    def networks(self) -> list:
+        """The pipeline's networks: the text tower(s), the VAE and the UNet."""
+        towers = [self.clip] if self.clip_2 is None else [self.clip, self.clip_2]
+        return towers + [self.vae, self.unet]
+
     def _place(self) -> None:
         memory_format = (
             torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
         )
         self.clip.to(self.device, torch.float32)
+        if self.clip_2 is not None:
+            self.clip_2.to(self.device, torch.float32)
         self.vae.to(self.device, self.vae_dtype, memory_format=memory_format)
         self.unet.to(self.device, self.unet_dtype, memory_format=memory_format)
-        for m in (self.clip, self.vae, self.unet):
+        for m in self.networks():
             m.eval().requires_grad_(False)
         # a captured UNet call reads the parameters where they were: drop them all
         self._unet_graphs: Dict[tuple, _UNetGraph] = {}
@@ -256,16 +327,42 @@ class StableDiffusion:
         return get_num_tokens(self.tokenizer, prompt)
 
     @torch.no_grad()
-    def get_text_embeds(self, prompt, negative_prompt="") -> torch.Tensor:
-        """[2, 77, D] (uncond, cond), cached per prompt pair."""
+    def get_text_embeds(self, prompt, negative_prompt="") -> TextEmbeddings:
+        """[2, 77, D] (uncond, cond), cached per prompt pair; for SDXL an
+        `SDXLText` of two rows, zeros for an empty negative prompt."""
         cache_key = f"{prompt}|||{negative_prompt}"
         if cache_key not in self._text_embed_cache:
-            ids = np.concatenate(
-                [self.tokenizer(negative_prompt), self.tokenizer(prompt)], axis=0
-            )
-            ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-            self._text_embed_cache[cache_key] = self.clip(ids_t)
+            if self.clip_2 is not None:
+                self._text_embed_cache[cache_key] = self._xl_text_embeds(prompt, negative_prompt)
+            else:
+                ids = np.concatenate(
+                    [self.tokenizer(negative_prompt), self.tokenizer(prompt)], axis=0
+                )
+                ids_t = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+                self._text_embed_cache[cache_key] = self.clip(ids_t)
         return self._text_embed_cache[cache_key]
+
+    def _xl_text_embeds(self, prompt, negative_prompt) -> SDXLText:
+        def ids(tokenizer):
+            pair = np.concatenate([tokenizer(negative_prompt), tokenizer(prompt)], axis=0)
+            return torch.as_tensor(pair, dtype=torch.long, device=self.device)
+
+        text = self.encode_text_xl(ids(self.tokenizer), ids(self.tokenizer_2))
+        if negative_prompt == "":
+            return select_text(empty_negative_pairs(select_text(text, slice(1, 2))), 0)
+        return text
+
+    @torch.no_grad()
+    @tracing.traced("sd.text")
+    def encode_text_xl(self, ids: torch.Tensor, ids_2: torch.Tensor) -> SDXLText:
+        """SDXL's conditioning of B prompts from each tower's [B, 77] ids:
+        the two towers' penultimate states side by side [B, 77, D1 + D2],
+        the second tower's projected pooled rows [B, P] and the configured
+        time ids [B, 6], all f32."""
+        context_1, _ = self.clip.penultimate_and_pooled(ids)
+        context_2, pooled = self.clip_2.penultimate_and_pooled(ids_2)
+        time_ids = tracing.upload(self.config.add_time_ids, "sd.time_ids", dtype=torch.float32, device=self.device)
+        return SDXLText(torch.cat([context_1, context_2], dim=-1), pooled, time_ids.expand(ids.shape[0], -1))
 
     # ------------------------------------------------------------------
     def latent_shape(self, batch: int):
@@ -314,6 +411,7 @@ class StableDiffusion:
         captured.fill(latents_in, t, text_embeddings)
         captured.graph.replay()
         fa.count_replayed(captured.flash_launches)
+        tracing.count_replayed_attention(captured.attn_flops)
         tracing.UNET_REPLAYS += 1
         return _map_outputs(torch.clone, captured.outputs)
 
@@ -323,8 +421,12 @@ class StableDiffusion:
         if self.device.type == "cuda":
             x = x.contiguous(memory_format=torch.channels_last)
         store = [] if capture_attn else None
+        if isinstance(text_embeddings, SDXLText):
+            context, added = text_embeddings.context, (text_embeddings.pooled, text_embeddings.time_ids)
+        else:
+            context, added = text_embeddings, None
         out = self.unet(
-            x, t, text_embeddings.to(self.unet_dtype), attn_store=store, attn_edit_fn=attn_edit_fn
+            x, t, context.to(self.unet_dtype), attn_store=store, attn_edit_fn=attn_edit_fn, added_cond=added
         ).float()
         return (out, store) if capture_attn else out
 
@@ -345,11 +447,12 @@ class StableDiffusion:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             warm = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
-        recorded = fa.CAPTURED
+        recorded, attn_recorded = fa.CAPTURED, dict(tracing.ATTN_CAPTURED)
         # thread_local: another thread's CUDA call (NCCL's watchdog, a loader's pinned copy) cannot void the capture
         with torch.cuda.graph(captured.graph, stream=side, capture_error_mode="thread_local"):
             captured.outputs = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
         captured.flash_launches = fa.CAPTURED - recorded
+        captured.attn_flops = {r: n - attn_recorded[r] for r, n in tracing.ATTN_CAPTURED.items()}
         main.wait_stream(side)
         _map_outputs(lambda x: x.record_stream(main), warm)  # made on the side stream, read on the main one
         self._unet_graphs[key] = captured
@@ -373,7 +476,7 @@ class StableDiffusion:
     @torch.no_grad()
     def attention_maps(
         self,
-        text_embeddings: torch.Tensor,  # [2, 77, D]
+        text_embeddings: TextEmbeddings,  # [2, 77, D], or SDXL's record
         pred_rgb: torch.Tensor,  # [1, H, W, 3] in [0, 1]
         t,
         token_indices: Sequence[int],
@@ -421,7 +524,7 @@ class StableDiffusion:
 
     def sds_loss(
         self,
-        text_embeddings: torch.Tensor,  # [2, 77, D]
+        text_embeddings: TextEmbeddings,  # [2, 77, D], or SDXL's record
         pred_rgb: torch.Tensor,  # [B, H, W, 3] in [0, 1], differentiable
         t,  # int or 0-d integer tensor
         guidance_scale: float = 100.0,
@@ -443,7 +546,7 @@ class StableDiffusion:
         latents_noisy = self.scheduler.add_noise(latents_ng, noise, t)
         latent_model_input = torch.cat([latents_noisy] * 2, dim=0)
         text_ctx = (
-            text_embeddings.repeat_interleave(batch, dim=0) if batch > 1 else text_embeddings
+            map_text(lambda x: x.repeat_interleave(batch, dim=0), text_embeddings) if batch > 1 else text_embeddings
         )
         noise_pred = self.unet_noise_pred(latent_model_input, t, text_ctx)
         noise_pred_uncond, noise_pred_text = noise_pred.chunk(2, dim=0)
@@ -455,7 +558,7 @@ class StableDiffusion:
 
     def train_step(
         self,
-        text_embeddings: torch.Tensor,
+        text_embeddings: TextEmbeddings,
         pred_rgb: torch.Tensor,
         guidance_scale: float = 100.0,
         global_step: int = -1,
@@ -480,7 +583,7 @@ class StableDiffusion:
     @torch.no_grad()
     def produce_latents(
         self,
-        text_embeddings: torch.Tensor,  # [2B, 77, D] (uncond, cond)
+        text_embeddings: TextEmbeddings,  # [2B, 77, D] (uncond, cond), or SDXL's record
         generator: Optional[torch.Generator] = None,
         height: Optional[int] = None,
         width: Optional[int] = None,
@@ -495,11 +598,12 @@ class StableDiffusion:
         height = height or self.config.image_size
         width = width or self.config.image_size
         factor = 2 ** (len(self.config.vae.block_out_channels) - 1)
-        dev = text_embeddings.device
+        context = text_leaves(text_embeddings)[0]
+        dev = context.device
         if latents is not None:
             latents = latents.to(dev, torch.float32).permute(0, 3, 1, 2)
         else:
-            shape = (text_embeddings.shape[0] // 2, self.config.unet.in_channels, height // factor, width // factor)
+            shape = (context.shape[0] // 2, self.config.unet.in_channels, height // factor, width // factor)
             latents = torch.randn(shape, generator=generator, device=dev)
         ts = self.scheduler.timesteps(num_inference_steps).tolist()
         clock = FrameClock(dev)
@@ -581,9 +685,10 @@ class scoreDistillationLoss:
             return self.text_encodings[direction]
         return self.text_encoding
 
-    def stacked_encodings(self) -> torch.Tensor:
-        """[4, 2, 77, D] in DIRECTION_PROMPTS order (the multi-step's table)."""
-        return torch.stack([self.text_encodings[d] for d in DIRECTION_PROMPTS])
+    def stacked_encodings(self) -> TextEmbeddings:
+        """[4, 2, 77, D] in DIRECTION_PROMPTS order (the multi-step's table;
+        for SDXL a record of such stacks)."""
+        return stack_text([self.text_encodings[d] for d in DIRECTION_PROMPTS])
 
     def training_step(
         self,

@@ -30,6 +30,17 @@ capture tag ("self" when untagged) and is_cross True. The edit runs before
 the capture, so a captured map is the edited one. The probs path computes
 in f32 from q, k and v in the UNet's dtype; the JAX package's computes in
 the UNet's dtype, so in bf16 the two round differently (in f32 they agree).
+
+Each self-attention counts its FLOPs (4 B Q K C, from the shapes) under its
+route in `tracing.ATTN_{FLASH,SDPA,PROBS}_FLOPS`, once a call.
+
+SDXL (the port's own): a Transformer2D stacks `transformer_depth(level)`
+blocks, `transformer_blocks_0`, `transformer_blocks_1`, ... (depth 1 keeps
+the SD 1.x/2.x names), and with `addition_embed_type="text_time"` the call
+takes `added_cond` = (pooled text [B, P], time ids [B, 6]): the ids' 256-wide
+sinusoids are flattened beside the pooled row, and `add_embedding_linear_2(
+silu(add_embedding_linear_1(.)))` is added to the time embedding, in f32
+as the time embedding is.
 """
 from __future__ import annotations
 
@@ -117,13 +128,18 @@ class CrossAttention(nn.Module):
             if capture:
                 attn_store.append((self.capture, probs.mean(dim=1)))
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
+            route = "probs"
         elif not is_cross and flash_self_attention_enabled(Q, head_dim):
             out = flash_attention(q, k, v, scale)
+            route = "flash"
         else:
+            route = "sdpa"
             dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
             out = F.scaled_dot_product_attention(
                 *(x.transpose(1, 2).to(dt) for x in (q, k, v))
             ).transpose(1, 2)  # [B, h, Q, d] -> [B, Q, h, d]
+        if not is_cross:
+            tracing.count_attention(route, 4 * B * Q * K * C, hidden.device)
         return self.to_out_0(out.reshape(B, Q, C))
 
 
@@ -155,18 +171,23 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, channels: int, context_dim: int, num_heads: int, groups: int = 32, capture: str = ""):
+    def __init__(
+        self, channels: int, context_dim: int, num_heads: int, groups: int = 32, capture: str = "", depth: int = 1
+    ):
         super().__init__()
+        self.depth = depth
         self.norm = GroupNorm(groups, channels, eps=1e-6)
         self.proj_in = nn.Conv2d(channels, channels, 1)
-        self.transformer_blocks_0 = BasicTransformerBlock(channels, context_dim, num_heads, capture)
+        for i in range(depth):
+            self.add_module(f"transformer_blocks_{i}", BasicTransformerBlock(channels, context_dim, num_heads, capture))
         self.proj_out = nn.Conv2d(channels, channels, 1)
 
     def forward(self, x, context, attn_store=None, attn_edit_fn=None):
         B, C, H, W = x.shape
         h = self.proj_in(self.norm(x))
         h = h.permute(0, 2, 3, 1).reshape(B, H * W, C)
-        h = self.transformer_blocks_0(h, context, attn_store, attn_edit_fn)
+        for i in range(self.depth):
+            h = getattr(self, f"transformer_blocks_{i}")(h, context, attn_store, attn_edit_fn)
         h = h.reshape(B, H, W, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x
 
@@ -182,6 +203,11 @@ class UNet2DConditionModel(nn.Module):
         ctx = cfg.cross_attention_dim
         self.time_embedding_linear_1 = nn.Linear(chans[0], temb_dim)
         self.time_embedding_linear_2 = nn.Linear(temb_dim, temb_dim)
+        if cfg.addition_embed_type == "text_time":
+            self.add_embedding_linear_1 = nn.Linear(cfg.projection_class_embeddings_input_dim, temb_dim)
+            self.add_embedding_linear_2 = nn.Linear(temb_dim, temb_dim)
+        elif cfg.addition_embed_type is not None:
+            raise ValueError(f"addition_embed_type {cfg.addition_embed_type!r}: None or 'text_time'")
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
 
         skip_chans = [chans[0]]
@@ -195,7 +221,8 @@ class UNet2DConditionModel(nn.Module):
                 if is_cross:
                     self.add_module(
                         f"down_{level}_attn_{block}",
-                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="down"),
+                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="down",
+                                      depth=cfg.transformer_depth(level)),
                     )
                 skip_chans.append(ch)
             if level != n_levels - 1:
@@ -205,7 +232,9 @@ class UNet2DConditionModel(nn.Module):
                 skip_chans.append(ch)
 
         self.mid_resnet_0 = ResnetBlock2D(cin, cin, temb_dim, g)
-        self.mid_attn = Transformer2D(cin, ctx, cfg.attention_head_dim[-1], g, capture="mid")
+        self.mid_attn = Transformer2D(
+            cin, ctx, cfg.attention_head_dim[-1], g, capture="mid", depth=cfg.transformer_depth(n_levels - 1)
+        )
         self.mid_resnet_1 = ResnetBlock2D(cin, cin, temb_dim, g)
 
         for up_idx in range(n_levels):
@@ -221,7 +250,8 @@ class UNet2DConditionModel(nn.Module):
                 if is_cross:
                     self.add_module(
                         f"up_{up_idx}_attn_{block}",
-                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="up"),
+                        Transformer2D(ch, ctx, cfg.attention_head_dim[level], g, capture="up",
+                                      depth=cfg.transformer_depth(level)),
                     )
             if up_idx != n_levels - 1:
                 self.add_module(f"up_{up_idx}_upsample", nn.Conv2d(ch, ch, 3, padding=1))
@@ -229,10 +259,14 @@ class UNet2DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(g, cin, eps=1e-5)
         self.conv_out = nn.Conv2d(cin, cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample, timesteps, encoder_hidden_states, attn_store=None, attn_edit_fn=None):
+    def forward(
+        self, sample, timesteps, encoder_hidden_states, attn_store=None, attn_edit_fn=None, added_cond=None
+    ):
         """sample [B, in_ch, H, W]; timesteps scalar or [B]; context [B, T, Dc].
         `attn_store`: a list that receives the captured cross-attention maps;
-        `attn_edit_fn`: the probs-edit hook of every attention."""
+        `attn_edit_fn`: the probs-edit hook of every attention; `added_cond`:
+        SDXL's (pooled text [B, P], time ids [B, 6]), required with the
+        text_time added embedding and refused without it."""
         cfg = self.config
         n_levels = len(cfg.block_out_channels)
         ctx = encoder_hidden_states
@@ -243,7 +277,13 @@ class UNet2DConditionModel(nn.Module):
         # bf16 kernels to the f32 input), then drop to the activation dtype
         l1, l2 = self.time_embedding_linear_1, self.time_embedding_linear_2
         temb = F.linear(temb, l1.weight.float(), l1.bias.float())
-        temb = F.linear(F.silu(temb), l2.weight.float(), l2.bias.float()).to(sample.dtype)
+        temb = F.linear(F.silu(temb), l2.weight.float(), l2.bias.float())
+        if (added_cond is None) != (cfg.addition_embed_type is None):
+            raise ValueError(f"added_cond is needed exactly with addition_embed_type, here {cfg.addition_embed_type!r}")
+        if added_cond is not None:
+            with tracing.span("sd.cond"):
+                temb = temb + self.added_embedding(*added_cond)
+        temb = temb.to(sample.dtype)
 
         h = self.conv_in(sample)
         skips = [h]
@@ -274,3 +314,15 @@ class UNet2DConditionModel(nn.Module):
                 h = getattr(self, f"up_{up_idx}_upsample")(h)
 
         return self.conv_out(F.silu(self.conv_norm_out(h)))
+
+    def added_embedding(self, pooled: torch.Tensor, time_ids: torch.Tensor) -> torch.Tensor:
+        """SDXL's text_time embedding, f32 [B, temb]: the pooled text [B, P]
+        beside the flattened sinusoids of the time ids [B, 6]."""
+        cfg = self.config
+        B = pooled.shape[0]
+        ids = time_ids.reshape(-1).float()
+        time_embeds = timestep_embedding(ids, cfg.addition_time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift)
+        x = torch.cat([pooled.float(), time_embeds.reshape(B, -1)], dim=-1)
+        l1, l2 = self.add_embedding_linear_1, self.add_embedding_linear_2
+        x = F.linear(x, l1.weight.float(), l1.bias.float())
+        return F.linear(F.silu(x), l2.weight.float(), l2.bias.float())

@@ -7,7 +7,8 @@ type (Linear/Conv `weight` <- `kernel`, norm `weight` <- `scale`,
 Embedding `weight` <- `embedding`, `bias`). Two sources:
 
 * `load_sd_params(weights_dir, config)` reads a local HF snapshot
-  (`text_encoder/`, `vae/`, `unet/`, each holding *.safetensors or *.bin)
+  (`text_encoder/`, `vae/`, `unet/`, and SDXL's `text_encoder_2/`, each
+  holding *.safetensors or *.bin)
   with the JAX package's name maps (copied below): each port key gets its
   list of HF candidate names and takes the first one present. HF tensors
   are already in torch layout; what stays is the 1x1 reshape between a
@@ -102,6 +103,8 @@ def _hf_names_for_clip(path: str) -> list:
         return [p + "embeddings.token_embedding.weight"]
     if path.startswith("position_embedding"):
         return [p + "embeddings.position_embedding.weight"]
+    if path.startswith("text_projection"):  # CLIPTextModelWithProjection's pooled projection
+        return ["text_projection.weight"]
     if path.startswith("final_layer_norm"):
         leaf = path.split("/")[-1]
         suffix = "weight" if leaf == "scale" else "bias"
@@ -190,9 +193,9 @@ def unet_name_fn(path: str):
         return [f"{top}.{suffix}"], "conv"
     if top == "conv_norm_out":
         return [f"conv_norm_out.{suffix}"], "norm"
-    m = re.match(r"time_embedding_linear_(\d)", top)
+    m = re.match(r"(time_embedding|add_embedding)_linear_(\d)", top)
     if m:
-        return [f"time_embedding.linear_{m.group(1)}.{suffix}"], "linear"
+        return [f"{m.group(1)}.linear_{m.group(2)}.{suffix}"], "linear"
 
     m = re.match(r"(down|up)_(\d+)_(resnet|attn|downsample|upsample)_?(\d+)?", top)
     if top.startswith("mid_"):
@@ -222,9 +225,10 @@ def unet_name_fn(path: str):
         return [f"{base}.norm.{suffix}"], "norm"
     if sub in ("proj_in", "proj_out"):  # a 1x1 conv in SD 1.x, a linear in SD 2.x
         return [f"{base}.{sub}.{suffix}"], "conv"
-    assert sub == "transformer_blocks_0", path
+    m = re.fullmatch(r"transformer_blocks_(\d+)", sub)
+    assert m, path
     inner = rest[1]
-    tb = f"{base}.transformer_blocks.0"
+    tb = f"{base}.transformer_blocks.{m.group(1)}"
     if inner.startswith("norm"):
         return [f"{tb}.{inner}.{suffix}"], "norm"
     if inner in ("attn1", "attn2"):
@@ -235,8 +239,8 @@ def unet_name_fn(path: str):
     return [f"{tb}.ff.{sub_ff}.{suffix}"], "linear"
 
 
-NAME_FNS: Dict[str, Callable] = {"clip": clip_name_fn, "vae": vae_name_fn, "unet": unet_name_fn}
-HF_SUBFOLDERS = {"clip": "text_encoder", "vae": "vae", "unet": "unet"}
+NAME_FNS: Dict[str, Callable] = {"clip": clip_name_fn, "clip_2": clip_name_fn, "vae": vae_name_fn, "unet": unet_name_fn}
+HF_SUBFOLDERS = {"clip": "text_encoder", "clip_2": "text_encoder_2", "vae": "vae", "unet": "unet"}
 
 
 # ----------------------------------------------------------------------------------
@@ -289,23 +293,27 @@ def convert_hf_tensors(module: nn.Module, tensors: Mapping[str, torch.Tensor], n
 
 
 def build_sd_modules(config: SDConfig, device="cpu") -> Dict[str, nn.Module]:
-    """The port's CLIP, VAE and UNet for `config`, built on `device`
-    ("meta" builds no weights)."""
+    """The port's CLIP, VAE and UNet for `config` (and SDXL's second tower,
+    "clip_2"), built on `device` ("meta" builds no weights)."""
     from voxe_tpu_torch.models.sd.clip_text import CLIPTextModel
     from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
     from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 
     with torch.device(device):
-        return {
+        modules = {
             "clip": CLIPTextModel(config.clip),
             "vae": AutoencoderKL(config.vae),
             "unet": UNet2DConditionModel(config.unet),
         }
+        if config.clip_2 is not None:
+            modules["clip_2"] = CLIPTextModel(config.clip_2)
+        return modules
 
 
 def load_sd_params(weights_dir: Path, config: SDConfig) -> Dict[str, Dict[str, torch.Tensor]]:
     """An HF snapshot directory -> {"clip", "vae", "unet"} state dicts for
-    the port's modules at `config` (CPU tensors of the stored dtypes)."""
+    the port's modules at `config`, and "clip_2" from `text_encoder_2/` for
+    SDXL (CPU tensors of the stored dtypes)."""
     weights_dir = Path(weights_dir)
     log.info(f"loading HF checkpoint from {weights_dir} ...")
     modules = build_sd_modules(config, device="meta")

@@ -44,7 +44,7 @@ import torch
 
 from voxe_tpu_torch.data.dataset import PosedImagesDataset
 from voxe_tpu_torch.grid.voxels import VoxelGrid
-from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion, scoreDistillationLoss
+from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion, scoreDistillationLoss, select_text
 from voxe_tpu_torch.models.volumetric import VolumetricModel
 from voxe_tpu_torch.parallel.distributed import is_local_writer
 from voxe_tpu_torch.parallel.mesh import gather_axis, replicate, shard_rays
@@ -390,6 +390,8 @@ def make_sds_train_multi_step(
     signature: multi_step(grid, text_embeddings_by_dir [4, 2, 77, D],
                           ref_densities, ref_features, t_bounds [K, 2],
                           generator) -> last step's metrics
+    For SDXL the table is an `SDXLText` of such stacks: the context, the
+    pooled rows [4, 2, P] and the time ids [4, 2, 6].
     """
     im_h, im_w = intrinsics.height, intrinsics.width
     if use_shear_warp:
@@ -416,14 +418,14 @@ def make_sds_train_multi_step(
                         torch.randint(t_lo, t_hi + 1, (), generator=generator, device=generator.device), "draw.t"))
                 if use_shear_warp:
                     metrics = step(
-                        grid, text_by_dir[dir_idx], rotation, translation,
+                        grid, select_text(text_by_dir, dir_idx), rotation, translation,
                         ref_densities, ref_features, t, generator=generator,
                     )
                 else:
                     rays = flatten_rays(cast_rays(intrinsics, rotation, translation))
                     pixels = torch.zeros((im_h * im_w, 3), device=dev)
                     metrics = step(
-                        grid, text_by_dir[dir_idx], rays, pixels, ref_densities, ref_features, t,
+                        grid, select_text(text_by_dir, dir_idx), rays, pixels, ref_densities, ref_features, t,
                         generator=generator,
                     )
                 metrics["dir_idx"] = dir_idx

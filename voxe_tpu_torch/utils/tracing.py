@@ -21,6 +21,14 @@ adds the host time it took to `SYNC_NS` and runs inside
 program, read as deltas. So do `UNET_CALLS`, the calls of SD's no-grad
 UNet pass (`StableDiffusion.unet_noise_pred`), and `UNET_REPLAYS`, those of
 them that replayed a CUDA graph of the pass instead of dispatching it.
+
+`ATTN_FLASH_FLOPS`, `ATTN_SDPA_FLOPS` and `ATTN_PROBS_FLOPS` count the UNet
+self-attentions' FLOPs (q k^T and p v, 4 B Q K C, from the shapes) by the
+route each call took: the flash kernel, the library's SDPA or the f32 probs
+path (`count_attention`). A call recorded into a CUDA graph counts in
+`ATTN_CAPTURED` instead; the graph's owner adds what its capture recorded
+at each replay (`count_replayed_attention`), as the flash kernel's
+`LAUNCHES` / `CAPTURED` do.
 """
 from __future__ import annotations
 
@@ -34,6 +42,11 @@ SYNCS = 0  # calls made through `synced`, `scalar` and `upload`
 SYNC_NS = 0  # host nanoseconds spent inside them
 UNET_CALLS = 0  # calls of StableDiffusion.unet_noise_pred
 UNET_REPLAYS = 0  # of those, the calls that replayed a CUDA graph
+ATTN_FLASH_FLOPS = 0  # UNet self-attention FLOPs that ran through the flash kernel
+ATTN_SDPA_FLOPS = 0  # ... through the library's scaled_dot_product_attention
+ATTN_PROBS_FLOPS = 0  # ... through the f32 probs path (capture or the probs-edit hook)
+ATTN_CAPTURED = {"flash": 0, "sdpa": 0, "probs": 0}  # the same, recorded into CUDA graphs
+_ATTN_NAMES = {"flash": "ATTN_FLASH_FLOPS", "sdpa": "ATTN_SDPA_FLOPS", "probs": "ATTN_PROBS_FLOPS"}
 
 _recording = False
 _records: List[list] = []  # [name, parent index or -1, t0 ns, t1 ns]
@@ -142,3 +155,20 @@ def upload(values, site: str, *, dtype=None, device=None) -> torch.Tensor:
     if isinstance(values, torch.Tensor) and values.device.type != "cpu":
         return torch.as_tensor(values, dtype=dtype, device=device)
     return synced(site, lambda: torch.as_tensor(values, dtype=dtype, device=device))
+
+
+def count_attention(route: str, flops: int, device: torch.device) -> None:
+    """One self-attention call's FLOPs on `route` ("flash", "sdpa" or
+    "probs"): into `ATTN_CAPTURED` while the card's current stream is being
+    captured, else into the route's counter."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        ATTN_CAPTURED[route] += flops
+    else:
+        globals()[_ATTN_NAMES[route]] += flops
+
+
+def count_replayed_attention(counts: dict) -> None:
+    """A replay of a graph whose capture recorded `counts` ({route: FLOPs},
+    the change of `ATTN_CAPTURED` over the capture)."""
+    for route, flops in counts.items():
+        globals()[_ATTN_NAMES[route]] += flops
