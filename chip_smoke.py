@@ -15,7 +15,15 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      second call run to run (dk, dv bitwise), the forward with and without
      its LSE output, SDPA's backward as the library time, the three
      launches' device split (torch.profiler), the TMA-encode host cost, and
-     ptxas' registers and spills of every kernel from the build;
+     ptxas' registers and spills of every kernel from the build; the
+     GroupNorm kernel (group-norm-kernel), forward and backward, against
+     the plain version in f32 at one shape of each launch geometry (SD 2.0's
+     and SDXL's VAE and UNet, with and without SiLU, one f32 check), and at
+     the SDXL VAE encoder's and UNet's shapes device ms (torch.profiler)
+     beside its byte bound, the plain version's and F.group_norm + F.silu's
+     (the library yardstick); every later phase runs its GroupNorms through
+     the kernel (the plain version on the card fails the phase) and logs
+     their launches, and the kernels row gives the main path's;
   4. small-input checks: the tiny edit step's and a 16^3 shear-warp recon
      step's grid gradients on the card against the same step on the CPU;
   5. the edit main path at full width: the SDS edit step (SD 2.0 at its
@@ -188,6 +196,7 @@ from voxe_tpu_torch.models.volumetric import VolumetricModel, load_volumetric_mo
 from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
+from voxe_tpu_torch.ops import group_norm as gn
 from voxe_tpu_torch.render.accumulate import _pad_samples
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_feature_voxel_grid
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
@@ -364,20 +373,23 @@ def within_bf16_ulp(a, b, floor: float) -> bool:
     return bool(((a - b).abs() <= ulp + floor).all())
 
 
+def kernel_ms(fn, calls: int = 5) -> dict:
+    """{kernel name: device ms a call} from a torch.profiler pass over
+    `calls` calls of `fn`."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / calls / 1e3 for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def bwd_launch_split_ms(fn, calls: int = 5, passes: int = 3) -> dict:
     """Device ms per call of each of the backward's three launches, from a
-    torch.profiler pass over `calls` calls (another pass, up to `passes`,
-    when a profile lacks one of the three, as one has in a run)."""
+    profile over `calls` calls (another profile, up to `passes`, when one
+    lacks one of the three, as one has in a run)."""
     for _ in range(passes):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        split = {}
-        for e in prof.key_averages():
-            for kernel, label in BWD_LAUNCH_NAMES.items():
-                if f"::{kernel}<" in e.key:
-                    split[label] = e.device_time_total / e.count / 1e3
+        split = {label: ms for name, ms in kernel_ms(fn, calls).items()
+                 for kernel, label in BWD_LAUNCH_NAMES.items() if f"::{kernel}<" in name}
         if set(split) == set(BWD_LAUNCH_NAMES.values()):
             return split
     raise AssertionError(f"flash_attn_bwd: {passes} profiles lack a launch: {split}")
@@ -541,6 +553,119 @@ def phase_composite_kernel(dev) -> dict:
         name="composite_fwd", route="cuda", source="voxe_tpu_torch/csrc/composite_fwd.cu",
         replaces="voxe_tpu/ops/composite.py:91", launches=0, max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
+    )
+
+
+# GroupNorm with its SiLU (csrc/group_norm.cu), 32 groups, checked at one
+# shape of each launch geometry: the SDXL VAE encoder's 1024^2 x 128,
+# 512^2 x 256 and 128^2 x 512 (B = 1) and the SDXL UNet's 128^2 x 320 (CFG
+# batch 2), which are also timed; the main path's SD 2.0 VAE at 512^2 x 128
+# and its attention norm at 64^2 x 512 (no SiLU); the SD 2.0 UNet's
+# transformer norm at 64^2 x 320 (no SiLU); 8^2 x 1280 and 32^2 x 2560, where
+# the channels split over more than one block; and one f32 check in
+# contiguous NCHW. bf16 channels_last as the card runs the SD stack. Held
+# against the plain version in f32 from the same inputs, forward and
+# backward, element by element, at the relative tolerance of the element
+# (bf16: one rounding of the kernel's output) plus the floor of the largest
+# (the f32 sums' other order where the output cancels), as
+# tests/test_torch_group_norm.py holds it. The upstream gradient has a mean
+# and a part along x, so the fold's two terms of dx carry weight of order
+# one. Device ms from torch.profiler (the sum of a call's kernels: host
+# dispatch left out, which the plain version's twenty-odd launches would
+# otherwise add at the small shapes); the bound reads x and writes y once
+# (forward), reads x and dy and writes dx once (backward), at 3.35 TB/s.
+GN_SHAPES = ((1, 128, 1024, 1024), (1, 256, 512, 512), (1, 512, 128, 128), (2, 320, 128, 128))
+GN_CHECKS = tuple((shape, torch.bfloat16, True, True) for shape in GN_SHAPES) + (  # (shape, dtype, silu, channels_last)
+    ((1, 128, 512, 512), torch.bfloat16, True, True), ((1, 512, 64, 64), torch.bfloat16, False, True),
+    ((2, 320, 64, 64), torch.bfloat16, False, True), ((2, 1280, 8, 8), torch.bfloat16, True, True),
+    ((2, 2560, 32, 32), torch.bfloat16, True, True), ((2, 640, 32, 32), torch.float32, False, False),
+)
+GN_TOLS = {torch.bfloat16: (2.0**-8, 2e-3), torch.float32: (1e-5, 1e-4)}  # (relative, floor of the max)
+
+
+def device_ms(fn, calls: int = 5) -> tuple:
+    """(device ms a call of all its kernels, {kernel: ms a call}) after a
+    warm-up call, GroupNorm kernels keyed by name and template arguments."""
+    fn()
+    torch.cuda.synchronize()
+    split = {}
+    for name, ms in kernel_ms(fn, calls).items():
+        m = re.search(r"(group_norm_\w+)<([^>]*)>", name)
+        key = re.sub(r"\W+", "_", f"{m.group(1)}_{m.group(2)}" if m else name[:60])
+        split[key] = split.get(key, 0.0) + ms
+    return sum(split.values()), split
+
+
+def gn_worst(got, want, dtype) -> float:
+    """max |got - want| / (rel |want| + floor max|want|): at most 1."""
+    rel, floor = GN_TOLS[dtype]
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (rel * want.abs() + floor * float(want.abs().max()))).max())
+
+
+def gn_inputs(shape, dtype, channels_last, g, dev):
+    """x, dy, gamma, beta: dy with a mean and a part along x."""
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.randn(shape, generator=g, device=dev) * 2.0 + 0.5
+    dy = torch.randn(shape, generator=g, device=dev) + 1.0 + 0.25 * x
+    w = torch.randn(shape[1], generator=g, device=dev) * 0.5 + 1.0
+    b = torch.randn(shape[1], generator=g, device=dev) * 0.5
+    return (x.to(dtype).contiguous(memory_format=fmt), dy.to(dtype).contiguous(memory_format=fmt),
+            w.to(dtype), b.to(dtype))
+
+
+def phase_group_norm_kernel(dev) -> dict:
+    g = torch.Generator(device=dev).manual_seed(2)
+    for shape, dtype, silu, channels_last in GN_CHECKS:
+        x, dy, w, b = gn_inputs(shape, dtype, channels_last, g, dev)
+        y, aux = gn.forward_kernel(x, w, b, 32, 1e-6, silu)
+        dx, dw, db = gn.backward_kernel(x, dy, w, aux, 32, silu)
+        xf, wf, bf = (t.float().requires_grad_(True) for t in (x, w, b))
+        ref = gn.group_norm_reference(xf, wf, bf, 32, 1e-6, silu)
+        want = (ref.detach(), *torch.autograd.grad(ref, (xf, wf, bf), dy.float()))
+        worst = {name: gn_worst(got, w_, dtype) for name, got, w_ in zip(("y", "dx", "dgamma", "dbeta"), (y, dx, dw, db), want)}
+        log("kernel-check", kernel="group_norm", shape=list(shape), dtype=str(dtype).split(".")[-1], silu=silu,
+            channels_last=channels_last, **{f"worst_{k}": v for k, v in worst.items()})
+        if not max(worst.values()) <= 1.0:
+            raise AssertionError(f"group_norm disagrees with its plain version at {shape} {dtype} silu={silu}: {worst}")
+        del x, dy, y, aux, dx, xf, wf, bf, ref, want
+    torch.cuda.empty_cache()
+    rows = {}
+    for shape in GN_SHAPES:
+        C = shape[1]
+        x, dy, w, b = gn_inputs(shape, torch.bfloat16, True, g, dev)
+        aux = gn.forward_kernel(x, w, b, 32, 1e-6, True)[1]
+        fwd_ms, fwd_split = device_ms(lambda: gn.forward_kernel(x, w, b, 32, 1e-6, True))
+        bwd_ms, bwd_split = device_ms(lambda: gn.backward_kernel(x, dy, w, aux, 32, True))
+        xr = x.detach().requires_grad_(True)
+        plain_y = gn.group_norm_reference(xr, w, b, 32, 1e-6, True)
+        plain_fwd_ms, _ = device_ms(lambda: gn.group_norm_reference(x, w, b, 32, 1e-6, True))
+        plain_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(plain_y, (xr,), dy, retain_graph=True))
+        lib_y = F.silu(F.group_norm(xr, 32, w, b, 1e-6))
+        lib_fwd_ms, _ = device_ms(lambda: F.silu(F.group_norm(x, 32, w, b, 1e-6)))
+        lib_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(lib_y, (xr,), dy, retain_graph=True))
+        del plain_y, lib_y, xr
+        n = x.numel()
+        fwd_bound, bwd_bound = 2 * 2 * n / H100_BYTES_PER_S * 1e3, 3 * 2 * n / H100_BYTES_PER_S * 1e3
+        split = {f"{way}_{k}": v for way, sp in (("fwd", fwd_split), ("bwd", bwd_split))
+                 for k, v in sp.items() if "group_norm" in k}
+        rows[shape] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
+                           plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms, library_fwd_ms=lib_fwd_ms,
+                           library_bwd_ms=lib_bwd_ms)
+        log("kernel-time", kernel="group_norm", shape=list(shape), **rows[shape],
+            fwd_share_of_bound=fwd_bound / fwd_ms, bwd_share_of_bound=bwd_bound / bwd_ms,
+            splits=gn.plan(shape[0], C, shape[2] * shape[3], True, 8,
+                           torch.cuda.get_device_properties(0).multi_processor_count)[0])
+        log("kernel-split", kernel="group_norm", shape=list(shape), **split)
+        del x, dy, aux
+        torch.cuda.empty_cache()
+    main = rows[GN_SHAPES[0]]
+    return dict(
+        name="group_norm", route="cuda", source="voxe_tpu_torch/csrc/group_norm.cu", replaces=None, launches=0,
+        ms=main["fwd_ms"] + main["bwd_ms"], plain_ms=main["plain_fwd_ms"] + main["plain_bwd_ms"],
+        bound_ms=main["fwd_bound_ms"] + main["bwd_bound_ms"], bound_by="bytes",
+        library_ms=main["library_fwd_ms"] + main["library_bwd_ms"],
+        by_shape={"x".join(map(str, k)): v for k, v in rows.items()},
     )
 
 
@@ -2326,14 +2451,16 @@ def phase_quality_recon(dev, workdir: Path) -> tuple:
 
 def build_all() -> None:
     """One nvcc per kernel source, all started together."""
-    libs = {"flash_attn_fwd": fa.build, "flash_attn_bwd": fa.build_bwd, "composite_fwd": comp.build}
+    libs = {"flash_attn_fwd": fa.build, "flash_attn_bwd": fa.build_bwd, "composite_fwd": comp.build,
+            "group_norm": gn.build}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         futures = {name: pool.submit(fn, verbose=True) for name, fn in libs.items()}
         for name, fut in futures.items():
             fut.result()  # raises if nvcc failed
     log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
-    for name, lib in (("flash_attn_fwd", fa._LIB), ("flash_attn_bwd", fa._LIB_BWD), ("composite_fwd", comp._LIB)):
+    for name, lib in (("flash_attn_fwd", fa._LIB), ("flash_attn_bwd", fa._LIB_BWD), ("composite_fwd", comp._LIB),
+                      ("group_norm", gn._LIB)):
         if lib.report is None:
             log("ptxas", lib=name, note="not built in this process (a library of the same source was there)")
             continue
@@ -2343,23 +2470,29 @@ def build_all() -> None:
 
 
 BWD_PHASES = ("flash-bwd-kernel", "unet-grad")  # the only phases that run the flash backward
+GN_BY_PHASE = {}  # phase -> GroupNorm kernel calls (forward and backward, replays included)
 
 
 def timed(name: str, fn, *args):
     """Run one phase; print its seconds. Every phase but the flash kernels'
     checks (which hold the kernels against it) must leave the plain attention
-    uncalled on the card, and every phase but the backward's check and
-    unet-grad must launch no flash backward (no other path differentiates
-    through the UNet)."""
+    uncalled on the card, every phase but the GroupNorm kernel's check the
+    plain GroupNorm, and every phase but the backward's check and unet-grad
+    must launch no flash backward (no other path differentiates through the
+    UNet). The GroupNorm kernel calls of each phase go to GN_BY_PHASE."""
     global BWD_IN_PHASE
-    fa.REFERENCE_ON_CUDA = fa.LAUNCHES_BWD = BWD_IN_PHASE = 0
+    fa.REFERENCE_ON_CUDA = fa.LAUNCHES_BWD = BWD_IN_PHASE = gn.REFERENCE_ON_CUDA = 0
+    norms = gn.LAUNCHES
     t0 = time.perf_counter()
     out = fn(*args)
     bwd = BWD_IN_PHASE + fa.LAUNCHES_BWD
+    GN_BY_PHASE[name] = gn.LAUNCHES - norms
     log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=fa.REFERENCE_ON_CUDA,
-        flash_bwd_launches=bwd)
+        flash_bwd_launches=bwd, group_norm_calls=GN_BY_PHASE[name], plain_group_norm_calls=gn.REFERENCE_ON_CUDA)
     if name not in ("flash-kernel", "flash-bwd-kernel") and fa.REFERENCE_ON_CUDA != 0:
         raise AssertionError(f"{name}: the plain attention ran {fa.REFERENCE_ON_CUDA} times on the card")
+    if name != "group-norm-kernel" and gn.REFERENCE_ON_CUDA != 0:
+        raise AssertionError(f"{name}: the plain GroupNorm ran {gn.REFERENCE_ON_CUDA} times on the card")
     if name not in BWD_PHASES and bwd != 0:
         raise AssertionError(f"{name}: the flash backward launched {bwd} times")
     return out
@@ -2378,10 +2511,12 @@ def main() -> int:
     flash_row = timed("flash-kernel", phase_flash_kernel, dev)
     bwd_row = timed("flash-bwd-kernel", phase_flash_bwd_kernel, dev)
     comp_row = timed("composite-kernel", phase_composite_kernel, dev)
+    gn_row = timed("group-norm-kernel", phase_group_norm_kernel, dev)
     timed("small-check", phase_small_check, dev)
     timed("small-check-recon", phase_small_check_recon, dev)
     flash, composite = timed("main-path", phase_main, dev)
     flash_row["launches"] = flash
+    gn_row["launches"] = GN_BY_PHASE["main-path"] * gn.KERNELS_PER_CALL
     by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
         work = Path(tmp)
@@ -2433,7 +2568,8 @@ def main() -> int:
     comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
     for row in (flash_row, bwd_row, comp_row):  # timed() held flash_attn_bwd at 0 on every other path
         row["launches_by_path"] = {path: counts.get(row["name"], 0) for path, counts in by_path.items()}
-    print(json.dumps({"kernels": [flash_row, bwd_row, comp_row]}), flush=True)
+    gn_row["launches_by_phase"] = {name: calls * gn.KERNELS_PER_CALL for name, calls in GN_BY_PHASE.items()}
+    print(json.dumps({"kernels": [flash_row, bwd_row, comp_row, gn_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -55,6 +55,7 @@ from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
 from voxe_tpu_torch.ops import flash_attention as fa
+from voxe_tpu_torch.ops import group_norm as gn
 from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.logging import log
 from voxe_tpu_torch.utils.timing import FrameClock
@@ -169,7 +170,8 @@ class _UNetGraph:
     """One captured no-grad UNet call: the static inputs it reads (the
     latents, t as a 0-d int64 tensor on the card, the text embeddings, or
     each tensor of an SDXL text record), the outputs it writes, and the
-    flash forward launches and self-attention FLOPs a replay runs."""
+    flash forward launches, GroupNorm kernel calls and self-attention FLOPs
+    a replay runs."""
 
     def __init__(self, latents_in: torch.Tensor, text_embeddings: TextEmbeddings):
         dev = latents_in.device
@@ -181,6 +183,7 @@ class _UNetGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.outputs = None
         self.flash_launches = 0
+        self.group_norm_calls = 0
         self.attn_flops: Dict[str, int] = {}
 
     def fill(self, latents_in, t, text_embeddings) -> None:
@@ -411,6 +414,7 @@ class StableDiffusion:
         captured.fill(latents_in, t, text_embeddings)
         captured.graph.replay()
         fa.count_replayed(captured.flash_launches)
+        gn.count_replayed(captured.group_norm_calls)
         tracing.count_replayed_attention(captured.attn_flops)
         tracing.UNET_REPLAYS += 1
         return _map_outputs(torch.clone, captured.outputs)
@@ -447,11 +451,12 @@ class StableDiffusion:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             warm = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
-        recorded, attn_recorded = fa.CAPTURED, dict(tracing.ATTN_CAPTURED)
+        recorded, norms, attn_recorded = fa.CAPTURED, gn.CAPTURED, dict(tracing.ATTN_CAPTURED)
         # thread_local: another thread's CUDA call (NCCL's watchdog, a loader's pinned copy) cannot void the capture
         with torch.cuda.graph(captured.graph, stream=side, capture_error_mode="thread_local"):
             captured.outputs = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
         captured.flash_launches = fa.CAPTURED - recorded
+        captured.group_norm_calls = gn.CAPTURED - norms
         captured.attn_flops = {r: n - attn_recorded[r] for r, n in tracing.ATTN_CAPTURED.items()}
         main.wait_stream(side)
         _map_outputs(lambda x: x.record_stream(main), warm)  # made on the side stream, read on the main one

@@ -76,10 +76,10 @@ class ResnetBlock2D(nn.Module):
     # GroupNorm eps 1e-5 in the UNet (the VAE's are 1e-6)
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int, groups: int = 32):
         super().__init__()
-        self.norm1 = GroupNorm(groups, in_channels, eps=1e-5)
+        self.norm1 = GroupNorm(groups, in_channels, eps=1e-5, silu=True)
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_channels)
-        self.norm2 = GroupNorm(groups, out_channels, eps=1e-5)
+        self.norm2 = GroupNorm(groups, out_channels, eps=1e-5, silu=True)
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
@@ -87,9 +87,9 @@ class ResnetBlock2D(nn.Module):
             self.conv_shortcut = None
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -256,7 +256,7 @@ class UNet2DConditionModel(nn.Module):
             if up_idx != n_levels - 1:
                 self.add_module(f"up_{up_idx}_upsample", nn.Conv2d(ch, ch, 3, padding=1))
 
-        self.conv_norm_out = GroupNorm(g, cin, eps=1e-5)
+        self.conv_norm_out = GroupNorm(g, cin, eps=1e-5, silu=True)
         self.conv_out = nn.Conv2d(cin, cfg.out_channels, 3, padding=1)
 
     def forward(
@@ -313,7 +313,7 @@ class UNet2DConditionModel(nn.Module):
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
                 h = getattr(self, f"up_{up_idx}_upsample")(h)
 
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
     def added_embedding(self, pooled: torch.Tensor, time_ids: torch.Tensor) -> torch.Tensor:
         """SDXL's text_time embedding, f32 [B, temb]: the pooled text [B, P]

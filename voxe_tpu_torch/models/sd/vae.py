@@ -25,9 +25,9 @@ def conv3x3(cin: int, cout: int, stride: int = 1, padding: int = 1) -> nn.Conv2d
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, groups: int = 32):
         super().__init__()
-        self.norm1 = GroupNorm(groups, in_channels, eps=1e-6)
+        self.norm1 = GroupNorm(groups, in_channels, eps=1e-6, silu=True)
         self.conv1 = conv3x3(in_channels, out_channels)
-        self.norm2 = GroupNorm(groups, out_channels, eps=1e-6)
+        self.norm2 = GroupNorm(groups, out_channels, eps=1e-6, silu=True)
         self.conv2 = conv3x3(out_channels, out_channels)
         if in_channels != out_channels:
             self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
@@ -35,8 +35,8 @@ class ResnetBlock(nn.Module):
             self.conv_shortcut = None
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x))
+        h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -81,7 +81,7 @@ class Encoder(nn.Module):
         self.mid_resnet_0 = ResnetBlock(cin, cin, g)
         self.mid_attn = AttnBlock(cin, g)
         self.mid_resnet_1 = ResnetBlock(cin, cin, g)
-        self.conv_norm_out = GroupNorm(g, cin, eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, cin, eps=1e-6, silu=True)
         self.conv_out = conv3x3(cin, 2 * cfg.latent_channels)
 
     def forward(self, x):
@@ -93,7 +93,7 @@ class Encoder(nn.Module):
             if level != len(cfg.block_out_channels) - 1:
                 h = getattr(self, f"down_{level}_downsample")(F.pad(h, (0, 1, 0, 1)))
         h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -113,7 +113,7 @@ class Decoder(nn.Module):
                 cin = ch
             if level != len(chans) - 1:
                 self.add_module(f"up_{level}_upsample", conv3x3(ch, ch))
-        self.conv_norm_out = GroupNorm(g, cin, eps=1e-6)
+        self.conv_norm_out = GroupNorm(g, cin, eps=1e-6, silu=True)
         self.conv_out = conv3x3(cin, cfg.out_channels)
 
     def forward(self, z):
@@ -127,7 +127,7 @@ class Decoder(nn.Module):
             if level != n_levels - 1:
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
                 h = getattr(self, f"up_{level}_upsample")(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h))
 
 
 class AutoencoderKL(nn.Module):
