@@ -147,7 +147,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      [N, S] it launched in this run that phase 3 did not check;
  16. the `kernels` JSON line, the card line, and the final JSON line.
 Every phase's seconds are printed ([phase-seconds]); every phase but the
-flash kernels' checks fails if the plain attention ran on the card in it,
+flash kernels' checks and sd14-weights (which times the plain attention
+beside SDPA) fails if the plain attention ran on the card in it,
 and every phase but the backward's check and unet-grad fails if the flash
 backward launched in it (no other path differentiates through the UNet).
 Imports nothing from JAX or the JAX package.
@@ -172,6 +173,8 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from portbench.metrics.lib.opcount import (PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S, composite_bound_s, composite_bytes,
+                                           flash_fwd_bound_s)
 from voxe_tpu_torch.grid import feature_voxels as fvg
 from voxe_tpu_torch.grid.voxels import VoxelGrid, VoxelGridConfig, VoxelSize
 from voxe_tpu_torch.models.sd.sds import DIRECTION_PROMPTS, StableDiffusion
@@ -212,11 +215,10 @@ from voxe_tpu_torch.tools.oracle import render_frame
 from voxe_tpu_torch.train.testers import test_sh_vox_grid_vol_mod_with_posed_images
 from voxe_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, pose_spherical
 from voxe_tpu_torch.utils.constants import EXTRA_ACCUMULATED_WEIGHTS
+from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.misc import compute_expected_density_scale_for_relu_field_grid
 from voxe_tpu_torch.viz.video import read_mjpeg_avi
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak (data sheet, SXM, 700 W)
-H100_BYTES_PER_S = 3.35e12
 # The kernel is held at max|out - ref| / max|ref| < FLASH_REL_TOL. With randn
 # q/k/v an output element has std sqrt(e/L) (~0.03 at L = 2500-4096), so an
 # absolute limit would have to follow the shape. Both sides round the output
@@ -277,15 +279,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def flash_bound_ms(shape) -> tuple:
-    """(bound ms, what bounds it): 4*B*h*L*L*d flops at the bf16 peak against
-    q, k, v read and o written once at the memory rate."""
-    B, L, Hh, D = shape
-    t_ops = 4.0 * B * Hh * L * L * D / H100_BF16_FLOPS * 1e3
-    t_bytes = 4.0 * B * L * Hh * D * 2 / H100_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
 def phase_flash_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     errs = []
@@ -311,8 +304,8 @@ def phase_flash_kernel(dev) -> dict:
         ms = time_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = time_ms(lambda: fa.flash_attention_reference(q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        bound, bound_by = flash_bound_ms(shape)
-        times[shape] = (ms, plain_ms, library_ms, bound, bound_by)
+        bound = flash_fwd_bound_s(shape) * 1e3
+        times[shape] = (ms, plain_ms, library_ms, bound)
         log("kernel-time", kernel="flash_attn_fwd", shape=list(shape), ms=ms, plain_ms=plain_ms,
             sdpa_ms=library_ms, bound_ms=bound, share_of_bound=bound / ms,
             tflops=4.0 * B * Hh * L * L * D / ms / 1e9, tiles=-(-L // 128) * Hh * B,
@@ -320,11 +313,11 @@ def phase_flash_kernel(dev) -> dict:
     q = torch.randn(MAIN_SHAPE, device=dev, dtype=torch.bfloat16)
     log("kernel-host", kernel="flash_attn_fwd", what="TMA descriptor encoding per call (4 maps)",
         us=fa.encode_us(q, q, q, torch.empty_like(q)))
-    ms, plain_ms, library_ms, bound, bound_by = times[MAIN_SHAPE]
-    return dict(
+    ms, plain_ms, library_ms, bound = times[MAIN_SHAPE]
+    return dict(  # L / 2 FLOPs a byte at every timed L: above the chip's 295, so bound by operations
         name="flash_attn_fwd", route="cuda", source="voxe_tpu_torch/csrc/flash_attn_fwd.cu",
         replaces="voxe_tpu/models/sd/unet.py:163", launches=0, max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="operations", library_ms=library_ms,
     )
 
 
@@ -361,8 +354,8 @@ def flash_bwd_bound_ms(shape, lk=None) -> tuple:
     dv written once (bf16) plus lse and Di (f32) at the memory rate."""
     B, L, Hh, D = shape
     lk = L if lk is None else lk
-    t_ops = 5 * 2.0 * B * Hh * L * lk * D / H100_BF16_FLOPS * 1e3
-    t_bytes = (2 * (5 * B * L * Hh * D + 3 * B * lk * Hh * D) + 2 * 4 * B * Hh * L) / H100_BYTES_PER_S * 1e3
+    t_ops = 5 * 2.0 * B * Hh * L * lk * D / PEAK_BF16_FLOPS * 1e3
+    t_bytes = (2 * (5 * B * L * Hh * D + 3 * B * lk * Hh * D) + 2 * 4 * B * Hh * L) / PEAK_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -504,12 +497,6 @@ def hold_composite(args, name: str) -> float:
     return max(ew, ea)
 
 
-def composite_bound_ms(n: int, s: int) -> float:
-    """Bytes: read sigma and depth, write w (12 B a sample); read |dir|,
-    write acc (8 B a ray). The few flops a sample are far below the byte time."""
-    return (12.0 * n * s + 8.0 * n) / H100_BYTES_PER_S * 1e3
-
-
 def phase_composite_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     # the main shapes the driven paths launch at: 160 slices slab-padded to
@@ -542,10 +529,10 @@ def phase_composite_kernel(dev) -> dict:
         n, s = args[0].shape
         ms = time_ms(lambda: comp.composite_weights(*args))
         plain_ms = time_ms(lambda: comp.composite_weights_reference(*args), iters=5, warmup=1)
-        bound = composite_bound_ms(n, s)
+        bound = composite_bound_s(n, s) * 1e3
         times[name] = (ms, plain_ms, bound)
         log("kernel-time", kernel="composite_fwd", case=name, shape=[n, s], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, share_of_bound=bound / ms, gbytes_per_s=(12.0 * n * s + 8.0 * n) / ms / 1e6)
+            bound_ms=bound, share_of_bound=bound / ms, gbytes_per_s=composite_bytes(n, s) / ms / 1e6)
     del cases
     torch.cuda.empty_cache()
     ms, plain_ms, bound = times["recon_step_slab_padded"]
@@ -646,7 +633,7 @@ def phase_group_norm_kernel(dev) -> dict:
         lib_bwd_ms, _ = device_ms(lambda: torch.autograd.grad(lib_y, (xr,), dy, retain_graph=True))
         del plain_y, lib_y, xr
         n = x.numel()
-        fwd_bound, bwd_bound = 2 * 2 * n / H100_BYTES_PER_S * 1e3, 3 * 2 * n / H100_BYTES_PER_S * 1e3
+        fwd_bound, bwd_bound = 2 * 2 * n / PEAK_HBM_BYTES_PER_S * 1e3, 3 * 2 * n / PEAK_HBM_BYTES_PER_S * 1e3
         split = {f"{way}_{k}": v for way, sp in (("fwd", fwd_split), ("bwd", bwd_split))
                  for k, v in sp.items() if "group_norm" in k}
         rows[shape] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_bound_ms=fwd_bound, bwd_bound_ms=bwd_bound,
@@ -725,9 +712,8 @@ def phase_small_check(dev) -> None:
     torch.backends.cudnn.allow_tf32 = True  # the library default, back for the main path
 
 
-def phase_main(dev) -> tuple:
-    """The edit main path at full width; returns its (flash, compositing)
-    launches."""
+def phase_main(dev) -> None:
+    """The edit main path at full width."""
     t0 = time.perf_counter()
     sd = StableDiffusion(SD_VERSION, init_mode="random", seed=0, device=dev)
     text_by_dir = torch.stack([sd.get_text_embeds(f"a dog made of yarn, {d} view") for d in DIRECTION_PROMPTS])
@@ -746,17 +732,17 @@ def phase_main(dev) -> tuple:
 
     before = grid.densities.detach().clone()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # counts from here to the end of the edit path's run
-    m = multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen)  # warm-up call
-    torch.cuda.synchronize()
-    losses, call_ms = [float(m["total_loss"])], []
-    for _ in range(TIMED_CALLS):
-        t0 = time.perf_counter()
-        m = multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen)
-        losses.append(float(m["total_loss"]))  # reads the loss: a device sync
+    with path("edit-step") as c:
+        m = multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen)  # warm-up call
         torch.cuda.synchronize()
-        call_ms.append((time.perf_counter() - t0) * 1e3 / STEPS_PER_CALL)
-    launches, composite_launches = fa.LAUNCHES, comp.LAUNCHES
+        losses, call_ms = [float(m["total_loss"])], []
+        for _ in range(TIMED_CALLS):
+            t0 = time.perf_counter()
+            m = multi(grid, text_by_dir, ref_d, ref_f, t_bounds, gen)
+            losses.append(float(m["total_loss"]))  # reads the loss: a device sync
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3 / STEPS_PER_CALL)
+    launches, composite_launches = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     steps = STEPS_PER_CALL * (1 + TIMED_CALLS)
     ms_step = float(np.median(call_ms))
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -768,17 +754,6 @@ def phase_main(dev) -> tuple:
         raise AssertionError(f"flash kernel launched {launches} times in {steps} steps, want 5 per step")
     if not all(np.isfinite(losses)) or not moved > 0.0:
         raise AssertionError(f"main path: losses {losses}, grid change {moved}")
-    return launches, composite_launches
-
-
-BWD_IN_PHASE = 0  # backward launches in the running phase, across its count resets
-
-
-def reset_counts() -> None:
-    global BWD_IN_PHASE
-    BWD_IN_PHASE += fa.LAUNCHES_BWD
-    fa.reset_launches()
-    comp.reset_launches()
 
 
 def make_recon_grid(res: int, dev, seed: int = 0, gather_dtype: str = "bfloat16", sh_degree: int = 0):
@@ -812,9 +787,9 @@ def phase_small_check_recon(dev) -> None:
         grid = grid.replace(densities=grid.densities.to(d), features=grid.features.to(d))
         opt = train_sds.make_adam(grid, 0.03)
         step = train_recon.make_recon_train_step_shearwarp(RECON_RCFG, opt, base, True)
-        before = comp.LAUNCHES
-        step(grid, targets.to(d), masks.to(d), poses.to(d), 1)
-        launches = comp.LAUNCHES - before
+        with tracing.counted() as c:
+            step(grid, targets.to(d), masks.to(d), poses.to(d), 1)
+        launches = c["composite.LAUNCHES"]
         grads[str(d)] = torch.cat([grid.densities.grad.flatten(), grid.features.grad.flatten()]).cpu()
     ref, got = grads["cpu"], grads[str(dev)]
     rel = float((got - ref).abs().max() / ref.abs().max())
@@ -825,9 +800,9 @@ def phase_small_check_recon(dev) -> None:
 
 
 def phase_recon_main(dev, workdir: Path) -> tuple:
-    """The recon main path at full width; returns its (flash, compositing)
-    launches and the trained state (grid, optimizer, config, base targets) that the
-    recon-kstep phase continues from."""
+    """The recon main path at full width; returns the trained state (grid,
+    optimizer, config, base targets) that the recon-kstep phase continues
+    from."""
     t0 = time.perf_counter()
     scene = workdir / "scene"
     generate_synthetic_scene(scene, num_train=8, num_test=2, image_size=SCENE, focal=float(SCENE),
@@ -855,17 +830,17 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
 
     before = grid.densities.detach().clone()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()  # counts from here to the end of the recon path's run
-    m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))  # warm-up call
-    losses, step_ms = [float(m["total_loss"])], []
-    for _ in range(RECON_TIMED_STEPS):
-        t1 = time.perf_counter()
-        m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))
-        losses.append(float(m["total_loss"]))  # reads the loss: a device sync
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
+    with path("recon") as c:
+        m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))  # warm-up call
+        losses, step_ms = [float(m["total_loss"])], []
+        for _ in range(RECON_TIMED_STEPS):
+            t1 = time.perf_counter()
+            m = step(grid, targets, masks, poses, int(rng.integers(0, len(train))))
+            losses.append(float(m["total_loss"]))  # reads the loss: a device sync
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
     steps = 1 + RECON_TIMED_STEPS
-    train_launches, flash_launches = comp.LAUNCHES, fa.LAUNCHES
+    train_launches, flash_launches = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     moved = float((grid.densities.detach() - before).abs().max())
     ms_step = float(np.median(step_ms))
@@ -882,30 +857,28 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
     model = VolumetricModel(grid.replace(densities=grid.densities.detach(), features=grid.features.detach()), rcfg)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    metrics = test_sh_vox_grid_vol_mod_with_posed_images(model, test)
-    torch.cuda.synchronize()
+    with path("recon") as c:
+        metrics = test_sh_vox_grid_vol_mod_with_posed_images(model, test)
+        torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t1) * 1e3 / len(test)
-    eval_launches = comp.LAUNCHES - train_launches
+    eval_launches = c["composite.LAUNCHES"]
     log("recon-heldout", images=len(test), psnr=metrics["psnr"], ssim=metrics["ssim"], ms_per_image=eval_ms,
         composite_launches=eval_launches, samples_per_ray=rcfg.render_num_samples_per_ray,
         chunk=rcfg.parallel_rays_chunk_size)
     if eval_launches != 5 * len(test) or not np.isfinite(metrics["psnr"]):
         raise AssertionError(f"held-out render: {eval_launches} launches for {len(test)} images, want 5 each")
-    total_launches = fa.LAUNCHES, comp.LAUNCHES
-    context = dict(grid=grid, opt=opt, rcfg=rcfg, targets=targets, masks=masks, poses=poses, base_hw=base_hw,
-                   num_images=len(train))
-    return total_launches, context
+    return dict(grid=grid, opt=opt, rcfg=rcfg, targets=targets, masks=masks, poses=poses, base_hw=base_hw,
+                num_images=len(train))
 
 
 RECON_K, RECON_K_ROUNDS = 10, 2
 
 
-def phase_recon_kstep(ctx: dict) -> tuple:
+def phase_recon_kstep(ctx: dict) -> None:
     """The recon main path's configuration at K = 10 steps a call against
     K = 1, as the trainer runs them: each call draws its image indices on
     the host and ends in a loss read (the summary's sync). Two rounds, each
-    one K = 10 call and ten K = 1 calls; returns the (flash, compositing)
-    launches."""
+    one K = 10 call and ten K = 1 calls."""
     grid, opt = ctx["grid"], ctx["opt"]
     args = (ctx["targets"], ctx["masks"], ctx["poses"])
     schedule = train_recon.exponential_decay_staircase(0.03, 400, 0.1)
@@ -913,17 +886,17 @@ def phase_recon_kstep(ctx: dict) -> tuple:
                                                                   lr_schedule=schedule) for k in (1, RECON_K)}
     rng = np.random.default_rng(7)
     torch.cuda.synchronize()
-    reset_counts()  # counts from here to the end of this path's run
     ms = {1: [], RECON_K: []}
     losses = []
-    for _ in range(RECON_K_ROUNDS):
-        for k, calls in ((RECON_K, 1), (1, RECON_K)):
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                m = multi[k](grid, *args, rng.integers(0, ctx["num_images"], k))
-                losses.append(float(m["total_loss"]))  # the summary's device sync
-            ms[k].append((time.perf_counter() - t0) * 1e3 / (calls * k))
-    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    with path("recon-kstep") as c:
+        for _ in range(RECON_K_ROUNDS):
+            for k, calls in ((RECON_K, 1), (1, RECON_K)):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    m = multi[k](grid, *args, rng.integers(0, ctx["num_images"], k))
+                    losses.append(float(m["total_loss"]))  # the summary's device sync
+                ms[k].append((time.perf_counter() - t0) * 1e3 / (calls * k))
+    launches, flash = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     steps = 2 * RECON_K_ROUNDS * RECON_K
     med = {k: float(np.median(v)) for k, v in ms.items()}
     log("recon-kstep", k=RECON_K, steps=steps, ms_per_step_k10=med[RECON_K], ms_per_step_k1=med[1],
@@ -933,7 +906,6 @@ def phase_recon_kstep(ctx: dict) -> tuple:
         losses_finite=bool(np.isfinite(losses).all()))
     if launches != 2 * steps or flash != 0 or not np.isfinite(losses).all():
         raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 2 a step")
-    return flash, launches
 
 
 class LogRecords(logging.Handler):
@@ -984,25 +956,25 @@ def write_random_lpips_weights(root: Path) -> Path:
     return root
 
 
-def phase_recon_cli(workdir: Path) -> tuple:
+def phase_recon_cli(workdir: Path) -> None:
     """The recon CLI module end to end at its default flags: 4 stages (20^3
     .. 160^3 grids on 50^2 .. 400^2 images) of a few shear-warp iterations
     with the fused kernel, the camera rays, feedback and held-out tests (with
     LPIPS on seeded random weights through $VOXE_LPIPS_WEIGHTS_DIR), ending
-    in model_final.pth; returns its (flash, compositing) launches."""
+    in model_final.pth."""
     out = workdir / "cli_out"
     lpips_dir = write_random_lpips_weights(workdir / "lpips")
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of the recon CLI's run
     os.environ["VOXE_LPIPS_WEIGHTS_DIR"] = str(lpips_dir)
     try:
-        _, records = logged(recon_cli.main, [
-            "-d", str(workdir / "scene"), "-o", str(out), "--num_stages", str(RECON_CLI_STAGES),
-            "--num_iterations_per_stage", str(RECON_CLI_ITERS), "--use_fused_kernel", "True", "--device", "cuda",
-        ])
+        with path("recon-cli") as c:
+            _, records = logged(recon_cli.main, [
+                "-d", str(workdir / "scene"), "-o", str(out), "--num_stages", str(RECON_CLI_STAGES),
+                "--num_iterations_per_stage", str(RECON_CLI_ITERS), "--use_fused_kernel", "True", "--device", "cuda",
+            ])
     finally:
         del os.environ["VOXE_LPIPS_WEIGHTS_DIR"]
-    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    launches, flash = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     seconds = time.perf_counter() - t0
     model, info = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
     dens = model.grid.densities
@@ -1035,7 +1007,6 @@ def phase_recon_cli(workdir: Path) -> tuple:
         raise AssertionError(f"recon CLI: held-out tests {tests}")
     if launches != want or flash != 0:
         raise AssertionError(f"recon CLI: {launches} compositing launches, want {want}; {flash} flash")
-    return flash, launches
 
 
 RESUME_ITERS, RESUME_MORE = 12, 22  # 10 + 2 steps a stage; the resumed run adds a call of 10 and one of 1
@@ -1046,27 +1017,26 @@ def heldout_launches(workdir: Path, tests: int) -> int:
     return -(-SCENE**2 // 32768) * len(list((workdir / "scene" / "test").glob("*.png"))) * tests
 
 
-def phase_recon_cli_resume(workdir: Path) -> tuple:
+def phase_recon_cli_resume(workdir: Path) -> None:
     """The recon CLI at its defaults with --steps_per_call 10 (4 stages of
     12 iterations: a call of 10 and one of 2 a stage), then --resume from
     the training_state_latest.pth it wrote with 22 iterations a stage: the
     ladder fast-forwards to stage 4 and continues after the saved iteration
-    (the first iteration of the saved call, as the JAX trainer records it).
-    Returns both runs' (flash, compositing) launches."""
+    (the first iteration of the saved call, as the JAX trainer records it)."""
     out, resumed = workdir / "cli_k10", workdir / "cli_k10_resumed"
     base = ["-d", str(workdir / "scene"), "--num_stages", str(RECON_CLI_STAGES), "--steps_per_call", "10",
             "--use_fused_kernel", "True", "--device", "cuda"]
-    reset_counts()  # counts from here to the end of both runs
     t0 = time.perf_counter()
-    _, records = logged(recon_cli.main, base + ["-o", str(out), "--num_iterations_per_stage", str(RESUME_ITERS)])
-    first_s, first_launches = time.perf_counter() - t0, comp.LAUNCHES
-    state = out / "saved_models" / "training_state_latest.pth"
-    _, meta = read_training_state(state)
-    stages = [r for r in records if hasattr(r, "stage_training_s")]
-    t0 = time.perf_counter()
-    _, records2 = logged(recon_cli.main, base + ["-o", str(resumed), "--num_iterations_per_stage", str(RESUME_MORE),
-                                                 "--resume", str(state)])
-    resumed_s, launches, flash = time.perf_counter() - t0, comp.LAUNCHES, fa.LAUNCHES
+    with path("recon-cli-resume") as c:
+        _, records = logged(recon_cli.main, base + ["-o", str(out), "--num_iterations_per_stage", str(RESUME_ITERS)])
+        first_s, first_launches = time.perf_counter() - t0, c["composite.LAUNCHES"]
+        state = out / "saved_models" / "training_state_latest.pth"
+        _, meta = read_training_state(state)
+        stages = [r for r in records if hasattr(r, "stage_training_s")]
+        t0 = time.perf_counter()
+        _, records2 = logged(recon_cli.main, base + ["-o", str(resumed), "--num_iterations_per_stage",
+                                                     str(RESUME_MORE), "--resume", str(state)])
+    resumed_s, launches, flash = time.perf_counter() - t0, c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     stages2 = [r for r in records2 if hasattr(r, "stage_training_s")]
     arrays2, meta2 = read_training_state(resumed / "saved_models" / "training_state_latest.pth")
     # first run: 2 steps an iteration; feedback on each stage's first and last
@@ -1095,13 +1065,12 @@ def phase_recon_cli_resume(workdir: Path) -> tuple:
     model, _ = load_volumetric_model(resumed / "saved_models" / "model_final.pth", device="cuda")
     if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all():
         raise AssertionError("recon-cli-resume: the resumed model_final.pth holds no finite 160^3 grid")
-    return flash, launches
 
 
 STREAM_ITERS = 12
 
 
-def phase_recon_streaming(dev, workdir: Path) -> tuple:
+def phase_recon_streaming(dev, workdir: Path) -> None:
     """One stage of the 400^2 scene through the trainer on the exact route
     at the recon CLI's final-stage settings (160^3, 32,768 rays of 256
     samples a step): RAM-backed, then memmap-backed (`cache_backing=
@@ -1109,30 +1078,28 @@ def phase_recon_streaming(dev, workdir: Path) -> tuple:
     again. The exact ray-batch step composites with the plain accumulate,
     as the JAX step does (its render takes no fused-kernel branch), so the
     compositing kernel launches 0 times here. ms/step is each stage's synced
-    training time over its steps, the first step's warm-up included.
-    Returns the (flash, compositing) launches of the three runs."""
+    training time over its steps, the first step's warm-up included."""
     scene = workdir / "scene"
     runs = {}
-    reset_counts()  # counts from here to the end of the three runs
-    for name, backing in (("ram", "ram"), ("memmap", "memmap"), ("ram_again", "ram")):
-        ds = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True,
-                                device=dev, cache_backing=backing)
-        model = VolumetricModel(make_recon_grid(GRID_RES, dev), RECON_RCFG.replace(camera_bounds=ds.camera_bounds))
-        before = comp.LAUNCHES
-        out, records = logged(lambda: train_recon.train_sh_vox_grid_vol_mod_with_posed_images(
-            model, ds, workdir / f"stream_{name}", num_stages=1, num_iterations_per_stage=STREAM_ITERS,
-            ray_batch_size=32768, image_batch_cache_size=8, fast_debug_mode=True))
-        stage = next(r for r in records if hasattr(r, "stage_training_s"))
-        runs[name] = dict(streaming=ds.streaming, ms_per_step=stage.stage_training_s / STREAM_ITERS * 1e3,
-                          composite_launches=comp.LAUNCHES - before,
-                          finite=bool(torch.isfinite(out.grid.densities).all()))
+    with path("recon-streaming") as c:
+        for name, backing in (("ram", "ram"), ("memmap", "memmap"), ("ram_again", "ram")):
+            ds = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True,
+                                    device=dev, cache_backing=backing)
+            model = VolumetricModel(make_recon_grid(GRID_RES, dev), RECON_RCFG.replace(camera_bounds=ds.camera_bounds))
+            with tracing.counted() as run:
+                out, records = logged(lambda: train_recon.train_sh_vox_grid_vol_mod_with_posed_images(
+                    model, ds, workdir / f"stream_{name}", num_stages=1, num_iterations_per_stage=STREAM_ITERS,
+                    ray_batch_size=32768, image_batch_cache_size=8, fast_debug_mode=True))
+            stage = next(r for r in records if hasattr(r, "stage_training_s"))
+            runs[name] = dict(streaming=ds.streaming, ms_per_step=stage.stage_training_s / STREAM_ITERS * 1e3,
+                              composite_launches=run["composite.LAUNCHES"],
+                              finite=bool(torch.isfinite(out.grid.densities).all()))
     log("recon-streaming", iterations=STREAM_ITERS, rays_per_step=32768, samples_per_ray=RECON_RCFG.num_samples_per_ray,
         runs=runs, memmap_over_ram=runs["memmap"]["ms_per_step"] / runs["ram"]["ms_per_step"],
-        flash_launches=fa.LAUNCHES)
+        flash_launches=c["flash_attention.LAUNCHES"])
     for name, r in runs.items():
         if r["streaming"] != (name == "memmap") or r["composite_launches"] != 0 or not r["finite"]:
             raise AssertionError(f"recon-streaming: {name} {r}")
-    return fa.LAUNCHES, comp.LAUNCHES
 
 
 def frame_stats(records) -> dict:
@@ -1152,10 +1119,9 @@ def check_video(path: Path, frames: int, side: int) -> None:
 TURNTABLE_FRAMES = 179  # the CLI's default --num_frames 180 (the last pose dropped)
 
 
-def phase_render_cli(workdir: Path, shear_warp: bool) -> tuple:
+def phase_render_cli(workdir: Path, shear_warp: bool) -> None:
     """The render CLI on the recon CLI's model_final.pth at its full width
-    (800^2, 512 samples), cut in depth to a few turntable frames; returns
-    its (flash, compositing) launches."""
+    (800^2, 512 samples), cut in depth to a few turntable frames."""
     name = "render-cli-shear-warp" if shear_warp else "render-cli-exact"
     num_frames = 37 if shear_warp else 9
     out = workdir / name
@@ -1164,9 +1130,9 @@ def phase_render_cli(workdir: Path, shear_warp: bool) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of this path's run
-    frames, records = logged(render_cli.main, args)
-    launches, flash = comp.LAUNCHES, fa.LAUNCHES
+    with path(name) as c:
+        frames, records = logged(render_cli.main, args)
+    launches, flash = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     stats = frame_stats(records)
     n = num_frames - 1
     log(name, **stats, turntable_179_frames_s_computed=stats["ms_per_frame_median"] * TURNTABLE_FRAMES / 1e3,
@@ -1179,13 +1145,12 @@ def phase_render_cli(workdir: Path, shear_warp: bool) -> tuple:
         raise AssertionError(f"{name}: frames {frames.shape}, {launches} launches, want {per_frame} a frame")
     if not 0 < frames.mean() < 255:
         raise AssertionError(f"{name}: blank frames")
-    return flash, launches
 
 
-def phase_render_attn_cli(workdir: Path, snapshot14: Path) -> dict:
+def phase_render_attn_cli(workdir: Path, snapshot14: Path) -> None:
     """The attention render CLI on the refine CLI's edit attention grid at
-    800^2: the blend on both routes, then live SD 1.4 attention; returns each
-    run's (flash, compositing) launches."""
+    800^2: the blend on both routes, then live SD 1.4 attention, each run a
+    path of its own."""
     model = workdir / "refine-cli" / "saved_models" / "model_final_attn_edit.pth"
     runs = {
         "render-attn-shear-warp": (5, ["--use_shear_warp", "True"], 2),
@@ -1194,24 +1159,22 @@ def phase_render_attn_cli(workdir: Path, snapshot14: Path) -> dict:
                                "--sds_prompt", "a dog wearing a party hat", "--index_to_attn", "4"],
                            -(-(2 * SCENE) ** 2 // 32768)),
     }
-    counts = {}
     for name, (num_frames, extra, per_frame) in runs.items():
         out = workdir / name
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        reset_counts()  # counts from here to the end of this path's run
-        frames, records = logged(render_attn_cli.main, [
-            "-i", str(model), "-o", str(out), "--num_frames", str(num_frames), "--device", "cuda"] + extra)
-        counts[name] = (fa.LAUNCHES, comp.LAUNCHES)
+        with path(name) as c:
+            frames, records = logged(render_attn_cli.main, [
+                "-i", str(model), "-o", str(out), "--num_frames", str(num_frames), "--device", "cuda"] + extra)
+        counts = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
         n = num_frames - 1
         log(name, **frame_stats(records), phase_s=time.perf_counter() - t0,
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[name][0],
-            composite_launches=counts[name][1], launches_per_frame=counts[name][1] / n, frame_shape=list(frames.shape))
+            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[0],
+            composite_launches=counts[1], launches_per_frame=counts[1] / n, frame_shape=list(frames.shape))
         check_video(out / "rendered_video.mp4", n, 2 * SCENE)
-        if frames.shape != (n, 2 * SCENE, 2 * SCENE, 3) or counts[name] != (0, per_frame * n):
-            raise AssertionError(f"{name}: frames {frames.shape}, launches {counts[name]}, want {per_frame} a frame")
-    return counts
+        if frames.shape != (n, 2 * SCENE, 2 * SCENE, 3) or counts != (0, per_frame * n):
+            raise AssertionError(f"{name}: frames {frames.shape}, launches {counts}, want {per_frame} a frame")
 
 
 def phase_shape_sweep(dev) -> float:
@@ -1311,8 +1274,7 @@ def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
     ids = torch.randint(0, 514, (2, 77), generator=g, device=dev)
     img = torch.rand((1, 3, src.config.image_size, src.config.image_size), generator=g, device=dev)
     lat = torch.randn(src.latent_shape(2), generator=g, device=dev)
-    before = fa.LAUNCHES
-    with torch.no_grad():
+    with torch.no_grad(), tracing.counted() as c:
         text = src.clip(ids)
         pairs = {
             "clip": (text, loaded.clip(ids)),
@@ -1324,12 +1286,11 @@ def phase_sd_weights(dev, workdir: Path, version: str = SD_VERSION) -> Path:
     size_gb = sum(f.stat().st_size for f in root.rglob("*.safetensors")) / 1e9
     log(phase, sd=version, snapshot_gb=size_gb, write_s=write_s, load_s=load_s, bitwise_equal=equal,
         tokenizer=type(loaded.tokenizer).__name__, pad_id=loaded.tokenizer.pad_token_id,
-        unet_flash_launches=fa.LAUNCHES - before)
+        unet_flash_launches=c["flash_attention.LAUNCHES"])
     if not all(equal.values()) or not isinstance(loaded.tokenizer, CLIPTokenizer):
         raise AssertionError(f"the loaded SD {version} differs from its source: {equal}")
     if version != SD_VERSION:
         attention_64(dev, loaded)
-        fa.REFERENCE_ON_CUDA = 0  # the comparison above called the plain version; later phases must not
     del src, loaded, pairs
     torch.cuda.empty_cache()
     return root
@@ -1359,9 +1320,9 @@ def attention_64(dev, sd: StableDiffusion) -> None:
         calls_per_unet_pass=5, **stats)
 
 
-def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
+def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> None:
     """The refine CLI module end to end, then the segment CLI on its
-    attention grids; returns each path's (flash, compositing) launches."""
+    attention grids, each a path of its own."""
     iters, every = 6, 3
     out = workdir / "refine-cli"
     recon = workdir / "cli_out" / "saved_models" / "model_final.pth"
@@ -1375,9 +1336,9 @@ def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of the refine path's run
-    _, records = logged(refine_cli.main, args)
-    counts = {"refine-cli": (fa.LAUNCHES, comp.LAUNCHES)}
+    with path("refine-cli") as c:
+        _, records = logged(refine_cli.main, args)
+    counts = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     done = next(r for r in records if hasattr(r, "time_training"))
@@ -1390,12 +1351,12 @@ def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
             for n in ("edit_attn_map", "pred_attn_edit", "render_diff", "attn_attn_iter")]
     log("refine-cli", iterations=iters, ms_per_iteration=done.time_training / iters * 1e3,
         ms_per_iteration_note="time_training / iterations; the first iteration's warm-up included",
-        time_training_s=done.time_training, phase_s=seconds, peak_mem_gib=peak, flash_launches=counts["refine-cli"][0],
-        composite_launches=counts["refine-cli"][1], graph_cut_s=done.graph_cut_s, graph_cut_nodes=done.graph_cut_nodes,
+        time_training_s=done.time_training, phase_s=seconds, peak_mem_gib=peak, flash_launches=counts[0],
+        composite_launches=counts[1], graph_cut_s=done.graph_cut_s, graph_cut_nodes=done.graph_cut_nodes,
         graph_cut_edges=edges, edit_voxels=done.edit_voxels, keep_values=keep,
         refined_loads_back=list(refined.grid.grid_dims), pngs_written=sum(p.exists() for p in pngs))
-    if counts["refine-cli"] != (0, 2 * iters + 5 * len(feedback)):
-        raise AssertionError(f"refine-cli: launches {counts['refine-cli']}, want (0, {2 * iters + 5 * len(feedback)})")
+    if counts != (0, 2 * iters + 5 * len(feedback)):
+        raise AssertionError(f"refine-cli: launches {counts}, want (0, {2 * iters + 5 * len(feedback)})")
     if refined.grid.grid_dims != (GRID_RES,) * 3 or not set(keep) <= {-10.0, -5.0, 0.0}:
         raise AssertionError(f"refine-cli: model_final_refined.pth holds {refined.grid.grid_dims}, keep grid {keep}")
     if not torch.isfinite(refined.grid.densities).all() or not all(p.exists() for p in pngs):
@@ -1403,65 +1364,60 @@ def phase_refine_cli(dev, workdir: Path, snapshot14: Path) -> dict:
 
     seg_out = workdir / "segment-cli"
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of the segment path's run
-    segment_cli.main([
-        "-d", str(workdir / "scene"), "-ie", str(saved / "model_final_attn_edit.pth"),
-        "-io", str(saved / "model_final_attn_object.pth"), "-r", str(recon), "-i", str(edited),
-        "-o", str(seg_out), "--data_downsample_factor", "1", "--device", str(dev),
-    ])
-    torch.cuda.synchronize()
-    counts["segment-cli"] = (fa.LAUNCHES, comp.LAUNCHES)
+    with path("segment-cli") as c:
+        segment_cli.main([
+            "-d", str(workdir / "scene"), "-ie", str(saved / "model_final_attn_edit.pth"),
+            "-io", str(saved / "model_final_attn_object.pth"), "-r", str(recon), "-i", str(edited),
+            "-o", str(seg_out), "--data_downsample_factor", "1", "--device", str(dev),
+        ])
+        torch.cuda.synchronize()
     seg, _ = load_volumetric_model(seg_out / "saved_models" / "model_final_refined.pth", device=dev)
     same = bool(torch.equal(seg.grid.attn, refined.grid.attn) and torch.equal(seg.grid.densities, refined.grid.densities))
-    log("segment-cli", phase_s=time.perf_counter() - t0, composite_launches=counts["segment-cli"][1],
+    log("segment-cli", phase_s=time.perf_counter() - t0, composite_launches=c["composite.LAUNCHES"],
         loads_back=list(seg.grid.grid_dims), same_merge_as_refine_cli=same)
-    if not same or counts["segment-cli"][1] == 0:
+    if not same or c["composite.LAUNCHES"] == 0:
         raise AssertionError(f"segment-cli: merge differs from the refine CLI's ({same}) or no launches")
-    return counts
 
 
 REFINE_K, REFINE_K_ITERS = 10, 20
 
 
-def phase_refine_kstep(dev, workdir: Path, snapshot14: Path) -> dict:
+def phase_refine_kstep(dev, workdir: Path, snapshot14: Path) -> None:
     """The refine CLI at SD 1.4's published widths with --steps_per_call 10
     over 20 iterations (two calls; feedback on the first and the last, 5
     launches each), then the graph cut and merge; then the same at
-    --steps_per_call 1 for the comparison. Returns each run's (flash,
-    compositing) launches."""
+    --steps_per_call 1 for the comparison, each run a path of its own."""
     recon = workdir / "cli_out" / "saved_models" / "model_final.pth"
     edited = workdir / "edit-cli" / "saved_models" / "model_final.pth"
-    counts, stats = {}, {}
+    stats = {}
     for k in (REFINE_K, 1):
         name = "refine-kstep" if k > 1 else "refine-k1"
         out = workdir / name
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # counts from here to the end of this run
-        _, records = logged(refine_cli.main, [
-            "-d", str(workdir / "scene"), "-i", str(edited), "-r", str(recon), "-o", str(out),
-            "-p", "a dog wearing a party hat", "-eidx", "4 5", "--data_downsample_factor", "1",
-            "--sd_weights_dir", str(snapshot14), "--num_iterations_per_stage", str(REFINE_K_ITERS),
-            "--steps_per_call", str(k), "--device", str(dev),
-        ])
-        counts[name] = (fa.LAUNCHES, comp.LAUNCHES)
+        with path(name) as c:
+            _, records = logged(refine_cli.main, [
+                "-d", str(workdir / "scene"), "-i", str(edited), "-r", str(recon), "-o", str(out),
+                "-p", "a dog wearing a party hat", "-eidx", "4 5", "--data_downsample_factor", "1",
+                "--sd_weights_dir", str(snapshot14), "--num_iterations_per_stage", str(REFINE_K_ITERS),
+                "--steps_per_call", str(k), "--device", str(dev),
+            ])
+        counts = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
         done = next(r for r in records if hasattr(r, "time_training"))
         refined, _ = load_volumetric_model(out / "saved_models" / "model_final_refined.pth", device=dev)
         keep = torch.unique(refined.grid.attn).tolist()
         stats[name] = dict(ms_per_iteration=done.time_training / REFINE_K_ITERS * 1e3, graph_cut_s=done.graph_cut_s,
-                           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[name][0],
-                           composite_launches=counts[name][1], keep_values=keep)
-        if counts[name] != (0, 2 * REFINE_K_ITERS + 5 * 2) or not set(keep) <= {-10.0, -5.0, 0.0}:
-            raise AssertionError(f"{name}: launches {counts[name]}, keep grid {keep}")
+                           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=counts[0],
+                           composite_launches=counts[1], keep_values=keep)
+        if counts != (0, 2 * REFINE_K_ITERS + 5 * 2) or not set(keep) <= {-10.0, -5.0, 0.0}:
+            raise AssertionError(f"{name}: launches {counts}, keep grid {keep}")
     log("refine-kstep", k=REFINE_K, iterations=REFINE_K_ITERS, runs=stats,
         ms_per_iteration_note="time_training / iterations; the first call's warm-up included",
         ratio_k10_over_k1=stats["refine-kstep"]["ms_per_iteration"] / stats["refine-k1"]["ms_per_iteration"])
-    return counts
 
 
-def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> tuple:
-    """The edit CLI with --do_refinement and --post_process_scc; returns its
-    (flash, compositing) launches."""
+def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> None:
+    """The edit CLI with --do_refinement and --post_process_scc."""
     out = workdir / "edit-refine"
     args = [
         "-i", str(workdir / "cli_out" / "saved_models" / "model_final.pth"), "-o", str(out),
@@ -1473,10 +1429,10 @@ def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> t
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of this path's run
-    edit_cli.main(args)
-    torch.cuda.synchronize()
-    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    with path("edit-refine") as c:
+        edit_cli.main(args)
+        torch.cuda.synchronize()
+    flash, composite = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     model, _ = load_volumetric_model(out / "saved_models" / "model_final_refined.pth", device=dev)
     log("edit-refine", sds_steps=2, refine_iterations=2, phase_s=time.perf_counter() - t0,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, flash_launches=flash, composite_launches=composite,
@@ -1488,12 +1444,10 @@ def phase_edit_refine(dev, workdir: Path, snapshot: Path, snapshot14: Path) -> t
         raise AssertionError(f"edit-refine: launches {flash} flash, {composite} compositing")
     if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all():
         raise AssertionError("edit-refine: model_final_refined.pth holds no finite 160^3 grid")
-    return flash, composite
 
 
-def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) -> tuple:
-    """The edit CLI module end to end; returns its (flash, compositing)
-    launches."""
+def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) -> None:
+    """The edit CLI module end to end."""
     name = "edit-data-pose" if data_pose else "edit-cli"
     steps, feedback_every = (2, 3) if data_pose else (6, 3)
     out = workdir / name
@@ -1507,9 +1461,9 @@ def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of this path's run
-    _, records = logged(edit_cli.main, args)
-    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    with path(name) as c:
+        _, records = logged(edit_cli.main, args)
+    flash, composite = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     seconds = time.perf_counter() - t0
     time_training = next(r.time_training for r in records if hasattr(r, "time_training"))
     model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device=dev)
@@ -1532,27 +1486,25 @@ def phase_edit_cli(dev, workdir: Path, snapshot: Path, data_pose: bool = False) 
         raise AssertionError(f"{name}: model_final.pth holds no finite, edited grid of the input's size")
     if not all(p.exists() for p in pngs):
         raise AssertionError(f"{name}: feedback PNGs missing")
-    return flash, composite
 
 
 SAMPLE_STEPS = 50  # the validate CLI's default --sanity_steps
 FLASH_PER_UNET_PASS = 5  # SD 2.x at a 64^2 latent: down_0's 2 and up_3's 3 self-attentions pass the gate
 
 
-def phase_sd_sample(dev, workdir: Path, snapshot: Path) -> tuple:
+def phase_sd_sample(dev, workdir: Path, snapshot: Path) -> None:
     """The validate CLI module on the SD 2.0 snapshot at its defaults (the
-    SDS smoke, then text-to-image at 512^2); returns its (flash,
-    compositing) launches."""
+    SDS smoke, then text-to-image at 512^2)."""
     png = workdir / "sd-sample" / "sanity.png"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of this path's run
-    img, records = logged(validate_cli.main, [
-        "-d", str(snapshot), "--sd_version", SD_VERSION, "--run_smoke", "True", "--sanity_image", str(png),
-        "--device", str(dev),
-    ])
-    flash, composite = fa.LAUNCHES, comp.LAUNCHES
+    with path("sd-sample") as c:
+        img, records = logged(validate_cli.main, [
+            "-d", str(snapshot), "--sd_version", SD_VERSION, "--run_smoke", "True", "--sanity_image", str(png),
+            "--device", str(dev),
+        ])
+    flash = c["flash_attention.LAUNCHES"]
     seconds = time.perf_counter() - t0
     step_ms = next(r.ddim_step_ms for r in records if hasattr(r, "ddim_step_ms"))
     decode_ms = next(r.decode_ms for r in records if hasattr(r, "decode_ms"))
@@ -1568,13 +1520,12 @@ def phase_sd_sample(dev, workdir: Path, snapshot: Path) -> tuple:
         raise AssertionError(f"sd-sample: the PNG holds {read.shape} {read.dtype}, not the 512x512x3 uint8 image")
     if len(step_ms) != SAMPLE_STEPS or flash != want:
         raise AssertionError(f"sd-sample: {len(step_ms)} DDIM steps, {flash} flash launches (want {want})")
-    return flash, composite
 
 
-def phase_p2p_hook(dev, snapshot: Path) -> tuple:
+def phase_p2p_hook(dev, snapshot: Path) -> None:
     """One SD 2.0 CFG UNet pass at 512^2, plain and with an identity
-    `attn_edit_fn`, then one AttentionRefine pass through the hook; returns
-    the hooked passes' (flash, compositing) launches."""
+    `attn_edit_fn`, then one AttentionRefine pass through the hook; the
+    hooked passes are the path."""
     sd = StableDiffusion(SD_VERSION, weights_dir=snapshot, device=dev)
     text = sd.get_text_embeds("a dog wearing a party hat")
     g = torch.Generator(device=dev).manual_seed(8)
@@ -1586,18 +1537,17 @@ def phase_p2p_hook(dev, snapshot: Path) -> tuple:
         calls.append((place, is_cross, tuple(probs.shape)))
         return probs
 
-    def pass_stats(edit):
+    def pass_stats(edit, counts):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()  # counts from here to the end of this pass
-        out = sd.unet_noise_pred(lat, 500, text, attn_edit_fn=edit)
-        torch.cuda.synchronize()
-        return out, (fa.LAUNCHES, comp.LAUNCHES), (torch.cuda.max_memory_allocated() - base) / 2**30
+        with counts:
+            out = sd.unet_noise_pred(lat, 500, text, attn_edit_fn=edit)
+            torch.cuda.synchronize()
+        return out, counts["flash_attention.LAUNCHES"], (torch.cuda.max_memory_allocated() - base) / 2**30
 
-    plain, (plain_flash, _), plain_gib = pass_stats(None)
-    hooked, hooked_counts, hooked_gib = pass_stats(identity)
-    hooked_flash = hooked_counts[0]
+    plain, plain_flash, plain_gib = pass_stats(None, tracing.counted())
+    hooked, hooked_flash, hooked_gib = pass_stats(identity, path("p2p-hook"))
     rel = float((hooked - plain).abs().max() / plain.abs().max())
     n_calls = len(calls)
     hook_ms = time_ms(lambda: sd.unet_noise_pred(lat, 500, text, attn_edit_fn=lambda p, place, c: p), 5, 1)
@@ -1615,9 +1565,9 @@ def phase_p2p_hook(dev, snapshot: Path) -> tuple:
         finite.append(torch.isfinite(out).all())
         return out
 
-    reset_counts()  # counts from here to the end of this pass
-    edited = sd.unet_noise_pred(lat, 500, pair_text, attn_edit_fn=refine)
-    refine_flash, refine_composite = fa.LAUNCHES, comp.LAUNCHES
+    with path("p2p-hook") as c:
+        edited = sd.unet_noise_pred(lat, 500, pair_text, attn_edit_fn=refine)
+    refine_flash = c["flash_attention.LAUNCHES"]
     ok_refine = bool(torch.stack(finite).all()) and bool(torch.isfinite(edited).all())
     log("p2p-hook", unet_pass="SD 2.0, [2, 4, 64, 64], t 500", plain_ms=plain_ms, hooked_ms=hook_ms,
         plain_transient_gib=plain_gib, hooked_transient_gib=hooked_gib, hooked_max_rel_diff=rel,
@@ -1632,13 +1582,12 @@ def phase_p2p_hook(dev, snapshot: Path) -> tuple:
         raise AssertionError(f"p2p-hook: AttentionRefine shapes {seen}, finite {ok_refine}")
     del sd
     torch.cuda.empty_cache()
-    return hooked_flash + refine_flash, hooked_counts[1] + refine_composite
 
 
 UNET_GRAD_TOL = 5e-2  # see phase_unet_grad
 
 
-def phase_unet_grad(dev, snapshot: Path) -> tuple:
+def phase_unet_grad(dev, snapshot: Path) -> None:
     """The SD 2.0 UNet's own gradient at its published widths (random
     weights, drawn biases, bf16): latents [2, 4, 64, 64] (a 512^2 image, CFG
     batch 2), text context [2, 77, 1024], t 500, a fixed random cotangent.
@@ -1649,8 +1598,7 @@ def phase_unet_grad(dev, snapshot: Path) -> tuple:
     finally) at UNET_GRAD_TOL of max|ref|: both sides are bf16, and their
     attention roundings differ at 5 layers forward and backward and carry
     through the rest of the UNet's backward (the forward alone reads 1.4e-2
-    bf16 flash against f32 probs, PERF.md §6). Returns the forward and
-    backward flash launches of one pass."""
+    bf16 flash against f32 probs, PERF.md §6). One pass is the path."""
     sd = StableDiffusion(SD_VERSION, weights_dir=snapshot, device=dev)
     text = sd.get_text_embeds("a dog wearing a party hat").to(sd.unet_dtype)
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1671,10 +1619,10 @@ def phase_unet_grad(dev, snapshot: Path) -> tuple:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        reset_counts()  # counts from here to the end of this pass
-        flash_grads = grads()
-        torch.cuda.synchronize()
-        flash, bwd, plain = fa.LAUNCHES, fa.LAUNCHES_BWD, fa.REFERENCE_ON_CUDA
+        with path("unet-grad") as c:
+            flash_grads = grads()
+            torch.cuda.synchronize()
+        flash, bwd, plain = (c[f"flash_attention.{n}"] for n in ("LAUNCHES", "LAUNCHES_BWD", "REFERENCE_ON_CUDA"))
         peak = (torch.cuda.max_memory_allocated() - base) / 2**30
         peak_total = torch.cuda.max_memory_allocated() / 2**30
         pass_ms = []
@@ -1717,7 +1665,6 @@ def phase_unet_grad(dev, snapshot: Path) -> tuple:
         raise AssertionError(f"unet-grad: flash-route gradients against SDPA's {rel}, finite {finite}")
     del sd
     torch.cuda.empty_cache()
-    return flash, bwd
 
 
 FEATURES = 12  # DVGO's rgbnet_dim: the feature channels the grid stores
@@ -1725,15 +1672,14 @@ FEATURE_LR_GRID, FEATURE_LR_HEADS = 0.03, 1e-3  # the recon CLI's grid lr; DVGO'
 FEATURE_STEPS = 8
 
 
-def phase_feature_grid(dev, workdir: Path) -> tuple:
+def phase_feature_grid(dev, workdir: Path) -> None:
     """The feature-voxel model at the recon path's size: a 160^3 grid of 12
     features with the reference's 64-wide, 4-deep rgbnet (about 0.2 GB of
     grid). A 400^2 image of the synthetic scene at 512 samples in the exact
     renderer's 32,768-ray chunks; then training steps at the recon CLI's ray
     batch (32,768 rays x 256 samples, jittered): L1 against the scene's
-    pixels, Adam on the grid and the heads. Returns its (flash, compositing)
-    launches (compositing 0: the feature render composites in plain PyTorch,
-    as in JAX)."""
+    pixels, Adam on the grid and the heads. No compositing launch: the
+    feature render composites in plain PyTorch, as in JAX."""
     scene = workdir / "scene"
     train = PosedImagesDataset(scene / "train", scene / "train_camera_params.json", rgba_white_bkgd=True, device=dev)
     images, poses = train.device_arrays()
@@ -1758,48 +1704,49 @@ def phase_feature_grid(dev, workdir: Path) -> tuple:
                                            rcfg).colour for i in range(0, rays.origins.shape[0], chunk)]
         return torch.cat(parts).reshape(intr.height, intr.width, 3)
 
-    reset_counts()  # counts from here to the end of this path's run
-    image()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    render_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        img = image()
+    with path("feature-grid") as c:
+        image()
         torch.cuda.synchronize()
-        render_ms.append((time.perf_counter() - t0) * 1e3)
-    render_peak = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        render_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = image()
+            torch.cuda.synchronize()
+            render_ms.append((time.perf_counter() - t0) * 1e3)
+        render_peak = torch.cuda.max_memory_allocated() / 2**30
 
-    params = grid.parameters()
-    for t in params:
-        t.requires_grad_(True)
-    opt = torch.optim.Adam([{"params": params[:2], "lr": FEATURE_LR_GRID},
-                            {"params": params[2:], "lr": FEATURE_LR_HEADS}], betas=(0.9, 0.999), eps=1e-8)
-    tcfg = rcfg.replace(num_samples_per_ray=256)
-    n_pix = intr.height * intr.width
-    head0 = grid.rgbnet[0][0].detach().clone()
+        params = grid.parameters()
+        for t in params:
+            t.requires_grad_(True)
+        opt = torch.optim.Adam([{"params": params[:2], "lr": FEATURE_LR_GRID},
+                                {"params": params[2:], "lr": FEATURE_LR_HEADS}], betas=(0.9, 0.999), eps=1e-8)
+        tcfg = rcfg.replace(num_samples_per_ray=256)
+        n_pix = intr.height * intr.width
+        head0 = grid.rgbnet[0][0].detach().clone()
 
-    def step():
-        flat = torch.randint(0, images.shape[0] * n_pix, (32768,), generator=g, device=dev)
-        target = images.reshape(-1, images.shape[-1])[flat][..., :3]
-        out = render_feature_voxel_grid(grid, train_recon.cast_rays_at_indices(intr, poses, flat), tcfg, generator=g)
-        loss = (out.colour - target).abs().mean()
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        opt.step()
-        return loss.detach()
+        def step():
+            flat = torch.randint(0, images.shape[0] * n_pix, (32768,), generator=g, device=dev)
+            target = images.reshape(-1, images.shape[-1])[flat][..., :3]
+            batch = train_recon.cast_rays_at_indices(intr, poses, flat)
+            out = render_feature_voxel_grid(grid, batch, tcfg, generator=g)
+            loss = (out.colour - target).abs().mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
 
-    losses = [float(step())]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = []
-    for _ in range(FEATURE_STEPS):
-        t0 = time.perf_counter()
-        losses.append(float(step()))
+        losses = [float(step())]
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    train_peak = torch.cuda.max_memory_allocated() / 2**30
-    composite, flash = comp.LAUNCHES, fa.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for _ in range(FEATURE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step()))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+    composite, flash = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     moved = float((grid.rgbnet[0][0].detach() - head0).abs().max())
     log("feature-grid", grid=GRID_RES, features=FEATURES, rgbnet=f"{cfg.rgbnet_width}x{cfg.rgbnet_depth}",
         grid_gb=grid_gb, image=f"{intr.height}x{intr.width}", samples=512, chunk=chunk,
@@ -1812,19 +1759,17 @@ def phase_feature_grid(dev, workdir: Path) -> tuple:
         raise AssertionError(f"feature-grid: image finite {bool(torch.isfinite(img).all())}, losses {losses}")
     del grid, opt
     torch.cuda.empty_cache()
-    return flash, composite
 
 
 GRID_REFINE_ITERS = 4
 
 
-def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> tuple:
+def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> None:
     """The legacy grid_refine loop on the 160^3 grids the CLI phases wrote
     (the recon CLI's model_final.pth as the reference, the edit CLI's as the
     SDS model, the refine CLI's attention grids), 384^2 base, SD 1.4 from
     the snapshot: 4 iterations with the attention re-learn, a graph cut and
-    merge at iterations 1 and 4, feedback renders. Returns its (flash,
-    compositing) launches."""
+    merge at iterations 1 and 4, feedback renders."""
     saved = workdir / "refine-cli" / "saved_models"
     models = {role: load_volumetric_model(path, device=dev)[0] for role, path in (
         ("sds", workdir / "edit-cli" / "saved_models" / "model_final.pth"),
@@ -1838,16 +1783,16 @@ def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    reset_counts()  # counts from here to the end of this path's run
-    _, records = logged(
-        grid_refine.refine_model, models["sds"], models["edit"], models["object"], models["ref"], train, out,
-        "a dog wearing a party hat", 4, 5, 0,
-        num_iterations_per_stage=GRID_REFINE_ITERS, refine_freq=GRID_REFINE_ITERS, relearn_attn_grids=True,
-        sd_model=sd, shear_warp_base_res=BASE, device=dev,
-    )
-    torch.cuda.synchronize()
+    with path("grid-refine") as c:
+        _, records = logged(
+            grid_refine.refine_model,     models["sds"], models["edit"], models["object"], models["ref"], train, out,
+            "a dog wearing a party hat", 4, 5, 0,
+            num_iterations_per_stage=GRID_REFINE_ITERS, refine_freq=GRID_REFINE_ITERS, relearn_attn_grids=True,
+            sd_model=sd, shear_warp_base_res=BASE, device=dev,
+        )
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    composite, flash = comp.LAUNCHES, fa.LAUNCHES
+    composite, flash = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     done = next(r for r in records if hasattr(r, "num_cuts"))
     files = sorted(p.name for p in (out / "saved_models").iterdir())
     pngs = sorted(p.name for p in (out / "training_logs" / "rendered_output").glob("*.png"))
@@ -1874,7 +1819,6 @@ def phase_grid_refine(dev, workdir: Path, snapshot14: Path) -> tuple:
         raise AssertionError(f"grid-refine: final SDS grid {final.grid.grid_dims}, keep {keep}, moved {moved}")
     del sd, models
     torch.cuda.empty_cache()
-    return flash, composite
 
 PAR_RECON_K, PAR_SDS_K, PAR_ROUNDS = 10, 3, 2
 PAR_RECON_TOL = 1e-6  # of max|grid|: at world size 1 the sharded step is the unsharded one (bitwise expected)
@@ -1925,7 +1869,7 @@ def grid_gap(states) -> tuple:
     return gap, scale, same
 
 
-def phase_parallel_nccl(dev, workdir: Path) -> tuple:
+def phase_parallel_nccl(dev, workdir: Path) -> None:
     """The data-parallel paths at world size 1 on NCCL (one card: NCCL
     refuses two ranks on one device): the group from torchrun's variables
     through maybe_init_distributed, the mesh passed to the step builders, so
@@ -1933,7 +1877,7 @@ def phase_parallel_nccl(dev, workdir: Path) -> tuple:
     K-step at full width (160^3, 768^2 base, the fused compositing kernel)
     and the SDS edit K-step (SD 2.0 widths, 160^3, 384^2 base) each against
     the same call without a mesh from the same state; then the recon CLI
-    with --multihost True. Returns its (flash, compositing) launches."""
+    with --multihost True."""
     import torch.distributed as dist
 
     from voxe_tpu_torch.parallel.distributed import free_port, maybe_init_distributed
@@ -1989,58 +1933,57 @@ def phase_parallel_nccl(dev, workdir: Path) -> tuple:
             return state["multi"](state["grid"], text_by_dir, *state["ref"], t_bounds, state["gen"])
 
         torch.cuda.synchronize()
-        reset_counts()  # counts from here to the end of this path's run
-        calls0 = dict(mesh.calls)
-        recon = sharded_pair(recon_state, recon_call, PAR_ROUNDS, PAR_RECON_K)
-        recon_calls = {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()}
-        recon_launches = comp.LAUNCHES
-        gap, scale, same = grid_gap(recon["states"])
-        nccl = nccl_device_ms(lambda: recon_call(recon["states"]["sharded"]), PAR_RECON_K)
-        log("parallel-nccl-recon", world=1, backend=dist.get_backend(), grid=GRID_RES, base=RECON_BASE,
-            k=PAR_RECON_K, rounds=PAR_ROUNDS, ms_per_step_sharded=recon["ms"]["sharded"],
-            ms_per_step_unsharded=recon["ms"]["unsharded"], ms_rounds=recon["ms_rounds"],
-            nccl_kernels_ms_and_launches_per_step=json.dumps(nccl).replace(" ", ""), collectives=recon_calls,
-            composite_launches=recon_launches, max_grid_diff=gap, max_grid=scale, bitwise=same,
-            tol_rel=PAR_RECON_TOL, card=card_line().replace(" ", "_"))
-        want = 2 * PAR_RECON_K * PAR_ROUNDS * 2
-        if not (gap <= PAR_RECON_TOL * scale and recon_launches == want):
-            raise AssertionError(f"parallel-nccl recon: grid gap {gap} of {scale}, {recon_launches} launches")
-        if recon_calls.get("all_reduce_grads") != PAR_RECON_K * PAR_ROUNDS:
-            raise AssertionError(f"parallel-nccl recon: collectives {recon_calls}")
+        with path("parallel-nccl") as c:
+            calls0 = dict(mesh.calls)
+            recon = sharded_pair(recon_state, recon_call, PAR_ROUNDS, PAR_RECON_K)
+            recon_calls = {k: v - calls0.get(k, 0) for k, v in mesh.calls.items()}
+            recon_launches = c["composite.LAUNCHES"]
+            gap, scale, same = grid_gap(recon["states"])
+            nccl = nccl_device_ms(lambda: recon_call(recon["states"]["sharded"]), PAR_RECON_K)
+            log("parallel-nccl-recon", world=1, backend=dist.get_backend(), grid=GRID_RES, base=RECON_BASE,
+                k=PAR_RECON_K, rounds=PAR_ROUNDS, ms_per_step_sharded=recon["ms"]["sharded"],
+                ms_per_step_unsharded=recon["ms"]["unsharded"], ms_rounds=recon["ms_rounds"],
+                nccl_kernels_ms_and_launches_per_step=json.dumps(nccl).replace(" ", ""), collectives=recon_calls,
+                composite_launches=recon_launches, max_grid_diff=gap, max_grid=scale, bitwise=same,
+                tol_rel=PAR_RECON_TOL, card=card_line().replace(" ", "_"))
+            want = 2 * PAR_RECON_K * PAR_ROUNDS * 2
+            if not (gap <= PAR_RECON_TOL * scale and recon_launches == want):
+                raise AssertionError(f"parallel-nccl recon: grid gap {gap} of {scale}, {recon_launches} launches")
+            if recon_calls.get("all_reduce_grads") != PAR_RECON_K * PAR_ROUNDS:
+                raise AssertionError(f"parallel-nccl recon: collectives {recon_calls}")
 
-        flash0 = fa.LAUNCHES
-        sds = sharded_pair(sds_state, sds_call, PAR_ROUNDS, PAR_SDS_K)
-        sds_flash = fa.LAUNCHES - flash0
-        gap, scale, same = grid_gap(sds["states"])
-        sds_nccl = nccl_device_ms(lambda: sds_call(sds["states"]["sharded"]), PAR_SDS_K)
-        log("parallel-nccl-sds", world=1, sd=SD_VERSION, grid=GRID_RES, base=BASE, k=PAR_SDS_K, rounds=PAR_ROUNDS,
-            ms_per_step_sharded=sds["ms"]["sharded"], ms_per_step_unsharded=sds["ms"]["unsharded"],
-            ms_rounds=sds["ms_rounds"], nccl_kernels_ms_and_launches_per_step=json.dumps(sds_nccl).replace(" ", ""),
-            flash_launches=sds_flash,
-            max_grid_diff=gap, max_grid=scale, bitwise=same, tol_rel=PAR_SDS_TOL,
-            card=card_line().replace(" ", "_"))
-        want = FLASH_PER_UNET_PASS * PAR_SDS_K * PAR_ROUNDS * 2
-        if not (gap <= PAR_SDS_TOL * scale and sds_flash == want):
-            raise AssertionError(f"parallel-nccl sds: grid gap {gap} of {scale}, {sds_flash} flash launches")
-        flash, composite = fa.LAUNCHES, comp.LAUNCHES
-        del sd, sds, recon
-        torch.cuda.empty_cache()
+            with tracing.counted() as run:
+                sds = sharded_pair(sds_state, sds_call, PAR_ROUNDS, PAR_SDS_K)
+            sds_flash = run["flash_attention.LAUNCHES"]
+            gap, scale, same = grid_gap(sds["states"])
+            sds_nccl = nccl_device_ms(lambda: sds_call(sds["states"]["sharded"]), PAR_SDS_K)
+            log("parallel-nccl-sds", world=1, sd=SD_VERSION, grid=GRID_RES, base=BASE, k=PAR_SDS_K, rounds=PAR_ROUNDS,
+                ms_per_step_sharded=sds["ms"]["sharded"], ms_per_step_unsharded=sds["ms"]["unsharded"],
+                ms_rounds=sds["ms_rounds"], nccl_kernels_ms_and_launches_per_step=json.dumps(sds_nccl).replace(" ", ""),
+                flash_launches=sds_flash,
+                max_grid_diff=gap, max_grid=scale, bitwise=same, tol_rel=PAR_SDS_TOL,
+                card=card_line().replace(" ", "_"))
+            want = FLASH_PER_UNET_PASS * PAR_SDS_K * PAR_ROUNDS * 2
+            if not (gap <= PAR_SDS_TOL * scale and sds_flash == want):
+                raise AssertionError(f"parallel-nccl sds: grid gap {gap} of {scale}, {sds_flash} flash launches")
+            del sd, sds, recon
+            torch.cuda.empty_cache()
 
-        out = workdir / "cli_multihost"
-        t0 = time.perf_counter()
-        logged(recon_cli.main, ["-d", str(scene), "-o", str(out), "--num_stages", "1", "--num_iterations_per_stage",
-                                "3", "--use_fused_kernel", "True", "--device", "cuda", "--multihost", "True",
-                                "--num_devices", "1"])
-        cli_s = time.perf_counter() - t0
-        model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
-        files = sorted(p.name for p in (out / "saved_models").iterdir())
-        log("parallel-nccl-cli", multihost=True, num_devices=1, seconds=cli_s, saved_models=files,
-            camera_rays_png=(out / "camera_rays.png").exists(), final_grid=list(model.grid.grid_dims),
-            composite_launches=comp.LAUNCHES - composite)
-        if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all() or not (
-                out / "camera_rays.png").exists():
-            raise AssertionError(f"parallel-nccl: the recon CLI with --multihost wrote {files}")
-        return fa.LAUNCHES, comp.LAUNCHES
+            out = workdir / "cli_multihost"
+            t0 = time.perf_counter()
+            with tracing.counted() as run:
+                logged(recon_cli.main, ["-d", str(scene), "-o", str(out), "--num_stages", "1",
+                                        "--num_iterations_per_stage", "3", "--use_fused_kernel", "True", "--device",
+                                        "cuda", "--multihost", "True", "--num_devices", "1"])
+            cli_s = time.perf_counter() - t0
+            model, _ = load_volumetric_model(out / "saved_models" / "model_final.pth", device="cuda")
+            files = sorted(p.name for p in (out / "saved_models").iterdir())
+            log("parallel-nccl-cli", multihost=True, num_devices=1, seconds=cli_s, saved_models=files,
+                camera_rays_png=(out / "camera_rays.png").exists(), final_grid=list(model.grid.grid_dims),
+                composite_launches=run["composite.LAUNCHES"])
+            if model.grid.grid_dims != (GRID_RES,) * 3 or not torch.isfinite(model.grid.densities).all() or not (
+                    out / "camera_rays.png").exists():
+                raise AssertionError(f"parallel-nccl: the recon CLI with --multihost wrote {files}")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2168,17 +2111,17 @@ def write_eval_tree(root: Path, dev) -> int:
             dev)), "a render of a blue dog"),
     }
     rcfg, intr = demo_render_config(), CameraIntrinsics(EVAL_SIDE, EVAL_SIDE, float(EVAL_SIDE))
-    launches = comp.LAUNCHES
-    for folder, (gr, prompt) in grids.items():
-        d = root / folder
-        d.mkdir(parents=True)
-        prefix = "color_" if folder == "recon" else ""
-        for i, yaw in enumerate(np.linspace(0.0, 360.0, EVAL_FRAMES + 1)[:-1]):
-            Image.fromarray(render_frame(gr, rcfg, intr, float(yaw))[0]).save(d / f"{prefix}frame_{i}.png")
-        if prompt:
-            (d / "prompt.txt").write_text(prompt + "\n")
-    torch.cuda.synchronize()
-    return comp.LAUNCHES - launches
+    with tracing.counted() as c:
+        for folder, (gr, prompt) in grids.items():
+            d = root / folder
+            d.mkdir(parents=True)
+            prefix = "color_" if folder == "recon" else ""
+            for i, yaw in enumerate(np.linspace(0.0, 360.0, EVAL_FRAMES + 1)[:-1]):
+                Image.fromarray(render_frame(gr, rcfg, intr, float(yaw))[0]).save(d / f"{prefix}frame_{i}.png")
+            if prompt:
+                (d / "prompt.txt").write_text(prompt + "\n")
+        torch.cuda.synchronize()
+    return c["composite.LAUNCHES"]
 
 
 def write_tiny_clip(root: Path) -> Path:
@@ -2212,53 +2155,52 @@ def _importable(name: str) -> bool:
     return importlib.util.find_spec(name) is not None
 
 
-def phase_eval_cli(dev, workdir: Path) -> tuple:
+def phase_eval_cli(dev, workdir: Path) -> None:
     """The evaluation CLI on a result tree of 400^2 frames: a random-weight
     full-width Inception3 (1000 classes, 2048-d pool3) and, where
     transformers imports, a tiny random CLIP; the CLI on the card, then with
     --device cpu on a copy of the tree. PSNR equal as text, FID within
     EVAL_FID_REL_TOL relative, CLIP within EVAL_CLIP_TOL, the same CSV
-    layout; the Inception embedder's images a second on the card. Returns
-    the (flash, compositing) launches of the tree's frames and the card's
-    CLI run."""
+    layout; the Inception embedder's images a second on the card. The
+    tree's frames and the card's CLI run are the path."""
     import shutil
 
     from voxe_tpu_torch.evaluation.inception import Inception3
     from voxe_tpu_torch.evaluation.metrics_lib import InceptionEmbedder, get_images
 
     root = workdir / "eval"
-    reset_counts()  # counts from here to the end of the card's CLI run
-    launches = write_eval_tree(root / "results_card" / "dog2", dev)
-    shutil.copytree(root / "results_card", root / "results_cpu")
-    inception = root / "inception"
-    inception.mkdir()
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        model = Inception3(num_classes=1000)
-        for m in model.modules():  # He init: torch's default lets the activations vanish over 94 convs
-            if isinstance(m, torch.nn.Conv2d):
-                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
-        torch.save(model.state_dict(), inception / "inception_v3.pth")
-    has_transformers, has_pandas = _importable("transformers"), _importable("pandas")
-    flags = ["--inception_model_dir", str(inception)]
-    if has_transformers:
-        flags += ["--clip_model_dir", str(write_tiny_clip(root / "clip"))]
-    # the --device cpu run in a process of its own beside the card's: both
-    # spend most of their time in scipy's sqrtm on the host
-    t0 = time.perf_counter()
-    with open(root / "cpu_run.log", "w") as cpu_log:
-        cpu_run = subprocess.Popen([sys.executable, "-m", "voxe_tpu_torch.cli.calculate_metrics", "-d",
-                                    str(root / "results_cpu"), *flags, "--device", "cpu"], stdout=cpu_log,
-                                   stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
-    try:
-        logged(calc_metrics_cli.main, ["-d", str(root / "results_card"), *flags, "--device", str(dev)])
-        seconds = {"card": time.perf_counter() - t0}
-        counts = fa.LAUNCHES, comp.LAUNCHES
-        code = cpu_run.wait(timeout=600)
-    finally:
-        if cpu_run.poll() is None:
-            cpu_run.kill()
-            cpu_run.wait()
+    with path("eval-cli") as c:
+        launches = write_eval_tree(root / "results_card" / "dog2", dev)
+        shutil.copytree(root / "results_card", root / "results_cpu")
+        inception = root / "inception"
+        inception.mkdir()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = Inception3(num_classes=1000)
+            for m in model.modules():  # He init: torch's default lets the activations vanish over 94 convs
+                if isinstance(m, torch.nn.Conv2d):
+                    torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+            torch.save(model.state_dict(), inception / "inception_v3.pth")
+        has_transformers, has_pandas = _importable("transformers"), _importable("pandas")
+        flags = ["--inception_model_dir", str(inception)]
+        if has_transformers:
+            flags += ["--clip_model_dir", str(write_tiny_clip(root / "clip"))]
+        # the --device cpu run in a process of its own beside the card's: both
+        # spend most of their time in scipy's sqrtm on the host
+        t0 = time.perf_counter()
+        with open(root / "cpu_run.log", "w") as cpu_log:
+            cpu_run = subprocess.Popen([sys.executable, "-m", "voxe_tpu_torch.cli.calculate_metrics", "-d",
+                                        str(root / "results_cpu"), *flags, "--device", "cpu"], stdout=cpu_log,
+                                       stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+        try:
+            logged(calc_metrics_cli.main, ["-d", str(root / "results_card"), *flags, "--device", str(dev)])
+            seconds = {"card": time.perf_counter() - t0}
+            counts = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
+            code = cpu_run.wait(timeout=600)
+        finally:
+            if cpu_run.poll() is None:
+                cpu_run.kill()
+                cpu_run.wait()
     seconds["cpu"] = time.perf_counter() - t0
     if code != 0:
         raise AssertionError(f"eval-cli: the --device cpu run exited {code}: {(root / 'cpu_run.log').read_text()[-2000:]}")
@@ -2297,7 +2239,6 @@ def phase_eval_cli(dev, workdir: Path) -> tuple:
         raise AssertionError(f"eval-cli: card and CPU CSVs differ in layout or PSNR: {csvs}")
     if not (fid_gap <= EVAL_FID_REL_TOL and clip_gap <= EVAL_CLIP_TOL and counts[1] == launches > 0):
         raise AssertionError(f"eval-cli: FID gap {fid_gap}, CLIP gap {clip_gap}, launches {counts}, tree {launches}")
-    return counts
 
 
 def write_reference_pickle(path: Path, grid: VoxelGrid) -> dict:
@@ -2355,25 +2296,24 @@ def write_reference_pickle(path: Path, grid: VoxelGrid) -> dict:
     return {k: v.numpy() for k, v in arrays.items()}
 
 
-def phase_import_reference(dev, workdir: Path) -> tuple:
+def phase_import_reference(dev, workdir: Path) -> None:
     """The reference-checkpoint importer on a reference-style pickle of the
     160^3 demo grid (SH degree 0, an attn channel, camera bounds and
     intrinsics in its extra_info): the import on the host, the checkpoint
     read back onto the card (arrays bitwise), one 400^2 frame of it through
-    the exact renderer and the compositing kernel. Returns the (flash,
-    compositing) launches."""
-    reset_counts()  # counts from here to the end of the frame
-    src = write_reference_pickle(workdir / "reference.pth", make_demo_grid(GRID_RES, device="cpu"))
-    t0 = time.perf_counter()
-    logged(import_cli.main, ["-i", str(workdir / "reference.pth"), "-o", str(workdir / "imported.pth")])
-    import_s = time.perf_counter() - t0
-    model, extra = load_volumetric_model(workdir / "imported.pth", device=dev)
-    same = {name: bool(np.array_equal(getattr(model.grid, name).cpu().numpy(), src[key]))
-            for name, key in (("densities", "_densities"), ("features", "_features"), ("attn", "attn"))}
-    intr = CameraIntrinsics(*[int(v) for v in extra["camera_intrinsics"][:2]], float(extra["camera_intrinsics"][2]))
-    out = model.render(intr, pose_spherical(40.0, 30.0, extra["hemispherical_radius"]), use_fused_kernel=True)
-    torch.cuda.synchronize()
-    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    the exact renderer and the compositing kernel."""
+    with path("import-reference") as c:
+        src = write_reference_pickle(workdir / "reference.pth", make_demo_grid(GRID_RES, device="cpu"))
+        t0 = time.perf_counter()
+        logged(import_cli.main, ["-i", str(workdir / "reference.pth"), "-o", str(workdir / "imported.pth")])
+        import_s = time.perf_counter() - t0
+        model, extra = load_volumetric_model(workdir / "imported.pth", device=dev)
+        same = {name: bool(np.array_equal(getattr(model.grid, name).cpu().numpy(), src[key]))
+                for name, key in (("densities", "_densities"), ("features", "_features"), ("attn", "attn"))}
+        intr = CameraIntrinsics(*[int(v) for v in extra["camera_intrinsics"][:2]], float(extra["camera_intrinsics"][2]))
+        out = model.render(intr, pose_spherical(40.0, 30.0, extra["hemispherical_radius"]), use_fused_kernel=True)
+        torch.cuda.synchronize()
+    flash, launches = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     acc = out.extra[EXTRA_ACCUMULATED_WEIGHTS]
     log("import-reference", grid=list(model.grid.grid_dims), import_s=import_s, bitwise=same, extra_info=extra,
         frame=list(out.colour.shape), colour_mean=float(out.colour.mean()),
@@ -2381,72 +2321,68 @@ def phase_import_reference(dev, workdir: Path) -> tuple:
     if not (all(same.values()) and out.colour.shape == (SCENE, SCENE, 3) and torch.isfinite(out.colour).all()
             and launches > 0):
         raise AssertionError(f"import-reference: bitwise {same}, frame {tuple(out.colour.shape)}, {launches} launches")
-    return flash, launches
 
 
 ORACLE_RES, ORACLE_BASE, ORACLE_ITERS = 160, 256, 300  # the README's production runs of both demos
 
 
-def phase_oracle_edit(dev, workdir: Path) -> tuple:
+def phase_oracle_edit(dev, workdir: Path) -> None:
     """demo_oracle_edit at 160^3 / 256^2 base, 300 iterations (its
     production run): the colour distance to the target at least halved,
-    density correlation > 0.9; ms a step. Returns the demo's
-    (flash, compositing) launches (the compositing ones: its exact frames)."""
+    density correlation > 0.9; ms a step (its compositing launches: its
+    exact frames)."""
     from voxe_tpu_torch.tools import oracle
 
-    reset_counts()
-    m, _ = logged(demo_edit_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--iters",
-                                        str(ORACLE_ITERS), "--out", str(workdir / "demo_oracle_160"), "--device",
-                                        str(dev)])
-    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    with path("oracle-edit") as c:
+        m, _ = logged(demo_edit_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--iters",
+                                            str(ORACLE_ITERS), "--out", str(workdir / "demo_oracle_160"), "--device",
+                                            str(dev)])
+    flash, launches = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     log("oracle-edit", **m, composite_launches=launches, flash_launches=flash, tpu_record_density_correlation=0.999,
         card=card_line().replace(" ", "_"))
     if not (m["colour_distance_after"] < 0.5 * m["colour_distance_before"] and m["density_correlation"] > 0.9
             and launches > 0):
         raise AssertionError(f"oracle-edit: {m}, {launches} launches")
-    return flash, launches
 
 
-def phase_oracle_local(dev, workdir: Path) -> tuple:
+def phase_oracle_local(dev, workdir: Path) -> None:
     """demo_oracle_local_edit at its record's configuration (160^3, 256^2
     base, 300 SDS + 300 refinement iterations): the JAX test's bounds (body
     restored, IoU > 0.5, hat feature delta > 0.1, body mislabel < 0.2),
-    logged beside the TPU record. Returns the (flash, compositing) launches."""
-    reset_counts()
-    m, _ = logged(demo_local_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--sds_iters",
-                                         str(ORACLE_ITERS), "--refine_iters", str(ORACLE_ITERS), "--out",
-                                         str(workdir / "demo_oracle_local_160"), "--device", str(dev)])
-    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    logged beside the TPU record."""
+    with path("oracle-local") as c:
+        m, _ = logged(demo_local_tool.main, ["--res", str(ORACLE_RES), "--base", str(ORACLE_BASE), "--sds_iters",
+                                             str(ORACLE_ITERS), "--refine_iters", str(ORACLE_ITERS), "--out",
+                                             str(workdir / "demo_oracle_local_160"), "--device", str(dev)])
+    flash, launches = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     log("oracle-local", **m, composite_launches=launches, flash_launches=flash, tpu_record=json.dumps(
         dict(iou=0.871, body_restored=True, body_mislabel_frac=0.0, hat_feature_delta=3.45)).replace(" ", ""),
         card=card_line().replace(" ", "_"))
     if not (m["body_restored"] and m["iou"] > 0.5 and m["hat_feature_delta"] > 0.1 and m["body_mislabel_frac"] < 0.2
             and launches > 0):
         raise AssertionError(f"oracle-local: {m}, {launches} launches")
-    return flash, launches
 
 
 QUALITY_ITERS, QUALITY_RECORD_ITERS = 75, 150  # a stage: cut from the record's 150 to keep the script's time
 
 
-def phase_quality_recon(dev, workdir: Path) -> tuple:
+def phase_quality_recon(dev, workdir: Path) -> None:
     """quality_run_shearwarp at the record's widths (160^3 grid, 128^2
     images, 16 views, the 2x base), QUALITY_ITERS a stage (the record's
     150 cut to half, logged): the coarse stages
     on the CPU, the last on the card through the compositing kernel, then
     the held-out and train views through the exact renderer. Held-out PSNR
-    finite and above 25 dB. Returns the (flash, compositing) launches."""
-    reset_counts()
-    result, _ = logged(quality_tool.main, ["--grid", str(GRID_RES), "--image", "128", "--views", "16", "--iters",
-                                           str(QUALITY_ITERS), "--out", str(workdir / "quality_sw"), "--device",
-                                           str(dev)])
-    flash, launches = fa.LAUNCHES, comp.LAUNCHES
+    finite and above 25 dB."""
+    with path("quality-recon") as c:
+        result, _ = logged(quality_tool.main, ["--grid", str(GRID_RES), "--image", "128", "--views", "16", "--iters",
+                                               str(QUALITY_ITERS), "--out", str(workdir / "quality_sw"), "--device",
+                                               str(dev)])
+    flash, launches = c["flash_attention.LAUNCHES"], c["composite.LAUNCHES"]
     log("quality-recon", **result, composite_launches=launches, flash_launches=flash,
         record_iters_per_stage=QUALITY_RECORD_ITERS,
         tpu_record_heldout_psnr=36.20, card=card_line().replace(" ", "_"))
     if not (np.isfinite(result["heldout_psnr"]) and result["heldout_psnr"] > 25.0 and launches > 0):
         raise AssertionError(f"quality-recon: {result}, {launches} launches")
-    return flash, launches
 
 
 def build_all() -> None:
@@ -2470,29 +2406,38 @@ def build_all() -> None:
 
 
 BWD_PHASES = ("flash-bwd-kernel", "unet-grad")  # the only phases that run the flash backward
-GN_BY_PHASE = {}  # phase -> GroupNorm kernel calls (forward and backward, replays included)
+# the only phases that call the plain attention on the card: the kernels' checks, and sd14-weights, which
+# times it beside SDPA (attention_64)
+PLAIN_ATTENTION_PHASES = ("flash-kernel", "flash-bwd-kernel", "sd14-weights")
+PHASES = {}  # phase -> its change of every program counter (tracing.counted)
+PATHS = {}  # driven path -> the counted runs of it (set-up left out), for the kernels JSON's launches_by_path
+
+
+def path(name: str) -> tracing.counted:
+    """A counted run of the driven path `name`; a path may have several."""
+    PATHS.setdefault(name, []).append(tracing.counted())
+    return PATHS[name][-1]
 
 
 def timed(name: str, fn, *args):
-    """Run one phase; print its seconds. Every phase but the flash kernels'
-    checks (which hold the kernels against it) must leave the plain attention
-    uncalled on the card, every phase but the GroupNorm kernel's check the
-    plain GroupNorm, and every phase but the backward's check and unet-grad
-    must launch no flash backward (no other path differentiates through the
-    UNet). The GroupNorm kernel calls of each phase go to GN_BY_PHASE."""
-    global BWD_IN_PHASE
-    fa.REFERENCE_ON_CUDA = fa.LAUNCHES_BWD = BWD_IN_PHASE = gn.REFERENCE_ON_CUDA = 0
-    norms = gn.LAUNCHES
+    """Run one phase; print its seconds and file its counts in PHASES. Every
+    phase but PLAIN_ATTENTION_PHASES must leave the plain attention uncalled
+    on the card, every phase but the GroupNorm kernel's check the plain
+    GroupNorm, and every phase but BWD_PHASES must launch no flash backward
+    (no other path differentiates through the UNet)."""
     t0 = time.perf_counter()
-    out = fn(*args)
-    bwd = BWD_IN_PHASE + fa.LAUNCHES_BWD
-    GN_BY_PHASE[name] = gn.LAUNCHES - norms
-    log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=fa.REFERENCE_ON_CUDA,
-        flash_bwd_launches=bwd, group_norm_calls=GN_BY_PHASE[name], plain_group_norm_calls=gn.REFERENCE_ON_CUDA)
-    if name not in ("flash-kernel", "flash-bwd-kernel") and fa.REFERENCE_ON_CUDA != 0:
-        raise AssertionError(f"{name}: the plain attention ran {fa.REFERENCE_ON_CUDA} times on the card")
-    if name != "group-norm-kernel" and gn.REFERENCE_ON_CUDA != 0:
-        raise AssertionError(f"{name}: the plain GroupNorm ran {gn.REFERENCE_ON_CUDA} times on the card")
+    with tracing.counted() as c:
+        out = fn(*args)
+    PHASES[name] = c
+    plain, bwd, norms, plain_norms = (c[k] for k in (
+        "flash_attention.REFERENCE_ON_CUDA", "flash_attention.LAUNCHES_BWD", "group_norm.LAUNCHES",
+        "group_norm.REFERENCE_ON_CUDA"))
+    log("phase-seconds", name=name, seconds=time.perf_counter() - t0, plain_attention_calls=plain,
+        flash_bwd_launches=bwd, group_norm_calls=norms, plain_group_norm_calls=plain_norms)
+    if name not in PLAIN_ATTENTION_PHASES and plain != 0:
+        raise AssertionError(f"{name}: the plain attention ran {plain} times on the card")
+    if name != "group-norm-kernel" and plain_norms != 0:
+        raise AssertionError(f"{name}: the plain GroupNorm ran {plain_norms} times on the card")
     if name not in BWD_PHASES and bwd != 0:
         raise AssertionError(f"{name}: the flash backward launched {bwd} times")
     return out
@@ -2514,21 +2459,17 @@ def main() -> int:
     gn_row = timed("group-norm-kernel", phase_group_norm_kernel, dev)
     timed("small-check", phase_small_check, dev)
     timed("small-check-recon", phase_small_check_recon, dev)
-    flash, composite = timed("main-path", phase_main, dev)
-    flash_row["launches"] = flash
-    gn_row["launches"] = GN_BY_PHASE["main-path"] * gn.KERNELS_PER_CALL
-    by_path = {"edit-step": {"flash_attn_fwd": flash, "composite_fwd": composite}}
+    timed("main-path", phase_main, dev)
     with tempfile.TemporaryDirectory(prefix="voxe_chip_smoke_") as tmp:
         work = Path(tmp)
 
         def no_unet(name, fn, *args):  # a path without a UNet: the flash forward must not launch
-            flash, composite = timed(name, fn, *args)
+            timed(name, fn, *args)
+            flash = PHASES[name]["flash_attention.LAUNCHES"]
             if flash != 0:
                 raise AssertionError(f"{name}: the flash forward launched {flash} times on a path without a UNet")
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
 
-        (flash, comp_row["launches"]), recon_ctx = timed("recon-main-path", phase_recon_main, dev, work)
-        by_path["recon"] = {"flash_attn_fwd": flash, "composite_fwd": comp_row["launches"]}
+        recon_ctx = timed("recon-main-path", phase_recon_main, dev, work)
         no_unet("recon-kstep", phase_recon_kstep, recon_ctx)
         del recon_ctx
         no_unet("recon-cli", phase_recon_cli, work)
@@ -2538,27 +2479,18 @@ def main() -> int:
             no_unet(name, phase_render_cli, work, shear_warp)
         no_unet("feature-grid", phase_feature_grid, dev, work)
         snapshot = timed("sd-weights", phase_sd_weights, dev, work)
-        for name, fn, args in (("sd-sample", phase_sd_sample, (dev, work, snapshot)),
-                               ("p2p-hook", phase_p2p_hook, (dev, snapshot))):
-            flash, composite = timed(name, fn, *args)
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        flash, bwd_row["launches"] = timed("unet-grad", phase_unet_grad, dev, snapshot)
-        by_path["unet-grad"] = {"flash_attn_fwd": flash, "flash_attn_bwd": bwd_row["launches"], "composite_fwd": 0}
+        timed("sd-sample", phase_sd_sample, dev, work, snapshot)
+        timed("p2p-hook", phase_p2p_hook, dev, snapshot)
+        timed("unet-grad", phase_unet_grad, dev, snapshot)
         for name, data_pose in (("edit-cli", False), ("edit-data-pose", True)):
-            flash, composite = timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+            timed(name, phase_edit_cli, dev, work, snapshot, data_pose)
         snapshot14 = timed("sd14-weights", phase_sd_weights, dev, work, "1.4")
-        for name, (flash, composite) in timed("refine-cli", phase_refine_cli, dev, work, snapshot14).items():
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        for name, (flash, composite) in timed("refine-kstep", phase_refine_kstep, dev, work, snapshot14).items():
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        flash, composite = timed("edit-refine", phase_edit_refine, dev, work, snapshot, snapshot14)
-        by_path["edit-refine"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
-        for name, (flash, composite) in timed("render-attn-cli", phase_render_attn_cli, work, snapshot14).items():
-            by_path[name] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        timed("refine-cli", phase_refine_cli, dev, work, snapshot14)
+        timed("refine-kstep", phase_refine_kstep, dev, work, snapshot14)
+        timed("edit-refine", phase_edit_refine, dev, work, snapshot, snapshot14)
+        timed("render-attn-cli", phase_render_attn_cli, work, snapshot14)
         no_unet("grid-refine", phase_grid_refine, dev, work, snapshot14)
-        flash, composite = timed("parallel-nccl", phase_parallel_nccl, dev, work)
-        by_path["parallel-nccl"] = {"flash_attn_fwd": flash, "composite_fwd": composite}
+        timed("parallel-nccl", phase_parallel_nccl, dev, work)
         timed("bf16-mesh-route", phase_bf16_mesh_route, dev)
         no_unet("eval-cli", phase_eval_cli, dev, work)
         no_unet("import-reference", phase_import_reference, dev, work)
@@ -2566,9 +2498,14 @@ def main() -> int:
         no_unet("oracle-local", phase_oracle_local, dev, work)
         no_unet("quality-recon", phase_quality_recon, dev, work)
     comp_row["max_abs_err"] = max(comp_row["max_abs_err"], timed("shape-sweep", phase_shape_sweep, dev))
-    for row in (flash_row, bwd_row, comp_row):  # timed() held flash_attn_bwd at 0 on every other path
-        row["launches_by_path"] = {path: counts.get(row["name"], 0) for path, counts in by_path.items()}
-    gn_row["launches_by_phase"] = {name: calls * gn.KERNELS_PER_CALL for name, calls in GN_BY_PHASE.items()}
+    # timed() held flash_attn_bwd at 0 on every path but unet-grad's
+    for row, counter, main_path in ((flash_row, "flash_attention.LAUNCHES", "edit-step"),
+                                    (bwd_row, "flash_attention.LAUNCHES_BWD", "unet-grad"),
+                                    (comp_row, "composite.LAUNCHES", "recon")):
+        row["launches_by_path"] = {name: sum(c[counter] for c in runs) for name, runs in PATHS.items()}
+        row["launches"] = row["launches_by_path"][main_path]
+    gn_row["launches"] = PHASES["main-path"]["group_norm.LAUNCHES"] * gn.KERNELS_PER_CALL
+    gn_row["launches_by_phase"] = {name: c["group_norm.LAUNCHES"] * gn.KERNELS_PER_CALL for name, c in PHASES.items()}
     print(json.dumps({"kernels": [flash_row, bwd_row, comp_row, gn_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

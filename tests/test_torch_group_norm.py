@@ -33,6 +33,7 @@ from voxe_tpu_torch.models.sd.norms import GroupNorm
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL, Encoder
 from voxe_tpu_torch.ops import group_norm as gn
+from voxe_tpu_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -258,10 +259,10 @@ def test_reader_asks_for_no_counter_without_the_module(monkeypatch):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    gn.reset_launches()
     x, w, b, _ = _inputs((1, 8, 4, 4), torch.float32, "cpu")
-    assert torch.equal(gn.group_norm(x, w, b, 2, 1e-6, True), gn.group_norm_reference(x, w, b, 2, 1e-6, True))
-    assert gn.LAUNCHES == gn.CAPTURED == gn.REFERENCE_ON_CUDA == 0
+    with tracing.counted() as c:
+        assert torch.equal(gn.group_norm(x, w, b, 2, 1e-6, True), gn.group_norm_reference(x, w, b, 2, 1e-6, True))
+    assert c["group_norm.LAUNCHES"] == c["group_norm.REFERENCE_ON_CUDA"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -308,9 +309,9 @@ TOLS = {torch.bfloat16: (2.0**-8, 2e-3), torch.float32: (1e-5, 1e-4)}
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernel_matches_plain_bf16(card, shape, channels_last, silu):
     x, w, b, dy = _inputs(shape, torch.bfloat16, card, channels_last=channels_last)
-    gn.reset_launches()
-    got = _kernel(x, w, b, dy, 32, silu)
-    assert gn.LAUNCHES == 2 and gn.REFERENCE_ON_CUDA == 0
+    with tracing.counted() as c:
+        got = _kernel(x, w, b, dy, 32, silu)
+    assert c["group_norm.LAUNCHES"] == 2 and c["group_norm.REFERENCE_ON_CUDA"] == 0
     assert got[0].is_contiguous(memory_format=torch.channels_last if channels_last else torch.contiguous_format)
     want = _plain_f32(x, w, b, dy, 32, silu)
     for name, g_, w_ in zip(("y", "dx", "dgamma", "dbeta"), got, want):
@@ -390,19 +391,19 @@ def test_bitwise_repeatable_and_replayed(card):
     with torch.cuda.stream(side):
         gn.group_norm(static, w, b, 32, 1e-6, True)  # warm-up outside the capture
     torch.cuda.current_stream().wait_stream(side)
-    gn.reset_launches()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = gn.group_norm(static, w, b, 32, 1e-6, True)
-    assert gn.CAPTURED == 1 and gn.LAUNCHES == 0
-    other, _, _, _ = _inputs((2, 640, 32, 32), torch.bfloat16, card, seed=5, channels_last=True)
-    for inp in (other, x):
-        static.copy_(inp)
-        graph.replay()
-        gn.count_replayed(gn.CAPTURED)
-        torch.cuda.synchronize()
-        assert torch.equal(out, gn.group_norm(inp, w, b, 32, 1e-6, True))
-    assert gn.LAUNCHES == 4 and gn.REFERENCE_ON_CUDA == 0
+    with tracing.counted() as c:
+        with tracing.captured() as tally, torch.cuda.graph(graph):
+            out = gn.group_norm(static, w, b, 32, 1e-6, True)
+        assert tally == {"group_norm.LAUNCHES": 1} and c["group_norm.LAUNCHES"] == 0
+        other, _, _, _ = _inputs((2, 640, 32, 32), torch.bfloat16, card, seed=5, channels_last=True)
+        for inp in (other, x):
+            static.copy_(inp)
+            graph.replay()
+            tracing.replayed(tally)
+            torch.cuda.synchronize()
+            assert torch.equal(out, gn.group_norm(inp, w, b, 32, 1e-6, True))
+    assert c["group_norm.LAUNCHES"] == 4 and c["group_norm.REFERENCE_ON_CUDA"] == 0
 
 
 @pytest.mark.cuda

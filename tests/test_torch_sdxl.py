@@ -230,9 +230,10 @@ def test_flash_share_reader_reads_the_route_counters(monkeypatch):
     module = reader(name)
     counters = counters_of({name: module})
     before = _snapshot(counters)
-    for route, flops, n in (("flash", 4 * 2 * 4096**2 * 640, 10), ("sdpa", 4 * 2 * 1024**2 * 1280, 60)):
+    for counter, flops, n in (("ATTN_FLASH_FLOPS", 4 * 2 * 4096**2 * 640, 10),
+                              ("ATTN_SDPA_FLOPS", 4 * 2 * 1024**2 * 1280, 60)):
         for _ in range(n):
-            tracing.count_attention(route, flops, torch.device("cpu"))
+            tracing.count("tracing." + counter, flops, torch.device("cpu"))
     values = _counter_values(counters, before, _snapshot(counters))
     assert module.read(Trace([], 0.0, 0.0, 1, 1.0, values, {}, {})) == pytest.approx(400 / 7)
     real = attn_flops.importlib.import_module
@@ -313,4 +314,6 @@ def test_attention_counters_at_full_width(cuda_device):
         sd.unet_noise_pred(lat, 500, text)
         after = (tracing.ATTN_FLASH_FLOPS, tracing.ATTN_SDPA_FLOPS, tracing.ATTN_PROBS_FLOPS, fa.LAUNCHES)
         assert tuple(b - a for a, b in zip(before, after)) == (10 * flash_call, 60 * sdpa_call, 0, 10), i
-    assert sum(tracing.ATTN_CAPTURED.values()) >= 10 * flash_call + 60 * sdpa_call
+    (graph,) = sd._unet_graphs.values()
+    assert (graph.tally["tracing.ATTN_FLASH_FLOPS"], graph.tally["tracing.ATTN_SDPA_FLOPS"]) == (
+        10 * flash_call, 60 * sdpa_call)

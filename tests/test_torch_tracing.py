@@ -1,9 +1,13 @@
 """voxe_tpu_torch/utils/tracing.py: spans off cost nothing and record
 nothing; recorded spans nest; under torch.profiler they are `voxe.*`
 annotations; `scalar` and `upload` return what the plain calls return and
-count each call; each trainer step records its spans once a step and
-computes the same bits with recording on and off."""
+count each call; each program counter is a module-level int (a set) that
+`count` raises, `counted` reads as a delta and a capture's tally adds at each
+replay; each trainer step records its spans once a step and computes the
+same bits with recording on and off."""
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 import pytest
@@ -115,6 +119,53 @@ def test_upload_returns_as_tensor_and_counts_host_values():
     assert torch.equal(got, torch.as_tensor(values, dtype=torch.float32))
     assert tracing.upload([1.0, 2.0], "probe").dtype == torch.float32
     assert tracing.SYNCS == before + 2 and tracing.SYNC_NS > waited
+
+
+# every program counter that portbench's metrics or the tests read, where
+# they read it, and three values to count: eagerly, then twice under a capture
+INT_VALUES = (3, 5, 7)
+PROGRAM_COUNTERS = [
+    ("voxe_tpu_torch.ops.flash_attention", "LAUNCHES", INT_VALUES),
+    ("voxe_tpu_torch.ops.flash_attention", "LAUNCHES_BWD", INT_VALUES),
+    ("voxe_tpu_torch.ops.flash_attention", "REFERENCE_ON_CUDA", INT_VALUES),
+    ("voxe_tpu_torch.ops.group_norm", "LAUNCHES", INT_VALUES),
+    ("voxe_tpu_torch.ops.group_norm", "REFERENCE_ON_CUDA", INT_VALUES),
+    ("voxe_tpu_torch.ops.composite", "LAUNCHES", INT_VALUES),
+    ("voxe_tpu_torch.ops.composite", "LAUNCHED_SHAPES", ({(1, 2)}, {(3, 4)}, {(3, 4), (5, 6)})),
+] + [("voxe_tpu_torch.utils.tracing", name, INT_VALUES) for name in (
+    "SYNCS", "SYNC_NS", "UNET_CALLS", "UNET_REPLAYS", "ATTN_FLASH_FLOPS", "ATTN_SDPA_FLOPS", "ATTN_PROBS_FLOPS")]
+
+
+def _total(values):
+    return set().union(*values) if isinstance(values[0], set) else sum(values)
+
+
+@pytest.mark.parametrize("module, name, values", PROGRAM_COUNTERS,
+                         ids=[f"{m.rsplit('.', 1)[-1]}.{n}" for m, n, _ in PROGRAM_COUNTERS])
+def test_program_counter_counts_reads_and_replays(monkeypatch, module, name, values):
+    home = importlib.import_module(module)
+    held = getattr(home, name)
+    assert type(held) is type(values[0])
+    monkeypatch.setattr(home, name, held)  # restored after the test
+    key = f"{module.rsplit('.', 1)[-1]}.{name}"
+    assert key in tracing.COUNTERS
+    eager, *captured = values
+    with tracing.counted() as c:
+        tracing.count(key, eager, torch.device("cpu"))  # never asks CUDA: this torch has none
+        assert c[key] == eager
+        with monkeypatch.context() as m:  # a card whose current stream is being captured
+            m.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+            with tracing.captured() as tally:
+                for value in captured:
+                    tracing.count(key, value, torch.device("cuda"))
+            with pytest.raises(RuntimeError):
+                tracing.count(key, eager, torch.device("cuda"))  # captured with no tally open
+        assert c[key] == eager and tally == {key: _total(captured)}
+        tracing.replayed(tally)
+        tracing.replayed(tally)
+    tracing.count(key, eager)  # after the block: not in it
+    assert c[key] == _total([eager] + captured + captured)
+    assert getattr(home, name) == _total([held, eager] + captured + captured + [eager])
 
 
 # each trainer step's spans a step (recon's draw is the view's pick)

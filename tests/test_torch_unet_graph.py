@@ -152,11 +152,12 @@ def test_replays_equal_the_eager_call_bitwise_and_count_flash_launches(cuda_devi
     for i in range(6):
         lat, t, _ = _inputs(sd, g, cuda_device)
         text = table[i % 4]
-        launches, captured = fa.LAUNCHES, fa.CAPTURED
-        got = sd.unet_noise_pred(lat, t, text)
+        with tracing.counted() as c:
+            got = sd.unet_noise_pred(lat, t, text)
         torch.cuda.synchronize()
         # the first call's warm-up ran 5 and its capture recorded 5; each replay runs 5
-        assert (fa.LAUNCHES - launches, fa.CAPTURED - captured) == ((5, 5) if i == 0 else (5, 0))
+        (graph,) = sd._unet_graphs.values()
+        assert c["flash_attention.LAUNCHES"] == graph.tally["flash_attention.LAUNCHES"] == 5
         assert got.dtype == torch.float32
         assert torch.equal(got, _plain_unet(sd, lat, t, text))
     assert _counts() == (calls + 6, replays + 5)

@@ -54,8 +54,6 @@ from voxe_tpu_torch.models.sd.tokenizer import CLIPTokenizer, HashTokenizer, get
 from voxe_tpu_torch.models.sd.unet import UNet2DConditionModel
 from voxe_tpu_torch.models.sd.vae import AutoencoderKL
 from voxe_tpu_torch.models.sd.weights import from_flax_params, load_sd_params
-from voxe_tpu_torch.ops import flash_attention as fa
-from voxe_tpu_torch.ops import group_norm as gn
 from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.logging import log
 from voxe_tpu_torch.utils.timing import FrameClock
@@ -170,8 +168,7 @@ class _UNetGraph:
     """One captured no-grad UNet call: the static inputs it reads (the
     latents, t as a 0-d int64 tensor on the card, the text embeddings, or
     each tensor of an SDXL text record), the outputs it writes, and the
-    flash forward launches, GroupNorm kernel calls and self-attention FLOPs
-    a replay runs."""
+    program counts a replay adds (`tracing.captured`)."""
 
     def __init__(self, latents_in: torch.Tensor, text_embeddings: TextEmbeddings):
         dev = latents_in.device
@@ -182,9 +179,7 @@ class _UNetGraph:
         self.text = map_text(lambda x: torch.empty(x.shape, dtype=x.dtype, device=dev), text_embeddings)
         self.graph = torch.cuda.CUDAGraph()
         self.outputs = None
-        self.flash_launches = 0
-        self.group_norm_calls = 0
-        self.attn_flops: Dict[str, int] = {}
+        self.tally: dict = {}
 
     def fill(self, latents_in, t, text_embeddings) -> None:
         """The call's inputs into the static ones: copies and a fill, which
@@ -404,7 +399,7 @@ class StableDiffusion:
         graph's static inputs, replays it and returns copies of its outputs,
         which the next replay does not overwrite. Elsewhere it runs eagerly.
         Either way the same kernels compute the same values."""
-        tracing.UNET_CALLS += 1
+        tracing.count("tracing.UNET_CALLS")
         if not unet_replays(latents_in, attn_edit_fn):
             return self._unet_eager(latents_in, t, text_embeddings, capture_attn, attn_edit_fn)
         key = unet_graph_key(latents_in, text_embeddings, capture_attn)
@@ -413,10 +408,8 @@ class StableDiffusion:
             return self._capture_unet(key, latents_in, t, text_embeddings, capture_attn)
         captured.fill(latents_in, t, text_embeddings)
         captured.graph.replay()
-        fa.count_replayed(captured.flash_launches)
-        gn.count_replayed(captured.group_norm_calls)
-        tracing.count_replayed_attention(captured.attn_flops)
-        tracing.UNET_REPLAYS += 1
+        tracing.replayed(captured.tally)
+        tracing.count("tracing.UNET_REPLAYS")
         return _map_outputs(torch.clone, captured.outputs)
 
     def _unet_eager(self, latents_in, t, text_embeddings, capture_attn: bool, attn_edit_fn=None):
@@ -451,13 +444,10 @@ class StableDiffusion:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             warm = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
-        recorded, norms, attn_recorded = fa.CAPTURED, gn.CAPTURED, dict(tracing.ATTN_CAPTURED)
         # thread_local: another thread's CUDA call (NCCL's watchdog, a loader's pinned copy) cannot void the capture
-        with torch.cuda.graph(captured.graph, stream=side, capture_error_mode="thread_local"):
+        with tracing.captured() as captured.tally, torch.cuda.graph(
+                captured.graph, stream=side, capture_error_mode="thread_local"):
             captured.outputs = self._unet_eager(captured.latents, captured.t, captured.text, capture_attn)
-        captured.flash_launches = fa.CAPTURED - recorded
-        captured.group_norm_calls = gn.CAPTURED - norms
-        captured.attn_flops = {r: n - attn_recorded[r] for r, n in tracing.ATTN_CAPTURED.items()}
         main.wait_stream(side)
         _map_outputs(lambda x: x.record_stream(main), warm)  # made on the side stream, read on the main one
         self._unet_graphs[key] = captured

@@ -128,18 +128,18 @@ class CrossAttention(nn.Module):
             if capture:
                 attn_store.append((self.capture, probs.mean(dim=1)))
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
-            route = "probs"
+            counter = "tracing.ATTN_PROBS_FLOPS"
         elif not is_cross and flash_self_attention_enabled(Q, head_dim):
             out = flash_attention(q, k, v, scale)
-            route = "flash"
+            counter = "tracing.ATTN_FLASH_FLOPS"
         else:
-            route = "sdpa"
+            counter = "tracing.ATTN_SDPA_FLOPS"
             dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
             out = F.scaled_dot_product_attention(
                 *(x.transpose(1, 2).to(dt) for x in (q, k, v))
             ).transpose(1, 2)  # [B, h, Q, d] -> [B, Q, h, d]
         if not is_cross:
-            tracing.count_attention(route, 4 * B * Q * K * C, hidden.device)
+            tracing.count(counter, 4 * B * Q * K * C, hidden.device)
         return self.to_out_0(out.reshape(B, Q, C))
 
 

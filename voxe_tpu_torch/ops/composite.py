@@ -14,7 +14,8 @@ the kernel cannot take (dtype, layout, device) raises — there is no
 fallback. Its backward re-differentiates the plain version, as the JAX
 package's custom VJP does, so the backward launches no kernel. `LAUNCHES`
 counts kernel launches and nothing else; `LAUNCHED_SHAPES` holds the [N, S]
-of every launch since import.
+of every launch since import. Both are program counters
+(`voxe_tpu_torch/utils/tracing.py::count`).
 """
 from __future__ import annotations
 
@@ -31,13 +32,8 @@ _LIB = CudaLibrary(
     "composite_fwd.cu", "voxe_composite_fwd",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 )
-LAUNCHES = 0  # kernel launches since import (or the last reset)
+LAUNCHES = 0  # kernel launches since import
 LAUNCHED_SHAPES = set()  # (N, S) of every launch since import
-
-
-def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
 
 
 def build(verbose: bool = False):
@@ -93,9 +89,8 @@ def composite_weights_kernel(
     )
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    LAUNCHED_SHAPES.add((N, S))
+    tracing.count("composite.LAUNCHES", device=raw_density.device)
+    tracing.count("composite.LAUNCHED_SHAPES", {(N, S)}, raw_density.device)
     return weights, acc
 
 

@@ -24,13 +24,12 @@ LSE. The backward is three launches (`backward_kernels`): a preprocess that
 computes Di = rowsum(dO * O) and pads Di and the LSE to the query tile, one
 pass that computes dK, dV and dQ's partial sums (reduced into an f32
 workspace in tile order), and a postprocess that turns the workspace into dq.
-`LAUNCHES` counts forward kernel launches that ran and `LAUNCHES_BWD`
-backward calls (one a call, whatever its three launches), and nothing else:
-a forward launch recorded into a CUDA graph counts in `CAPTURED` instead,
-and in `LAUNCHES` each time the graph's replay runs it (`count_replayed`);
-`REFERENCE_ON_CUDA` counts calls of a plain version on a CUDA tensor, which
-no path of the port makes (the UNet's other attention goes to the library's
-SDPA).
+`LAUNCHES` counts forward kernel launches that ran, a CUDA graph's replays
+included, and `LAUNCHES_BWD` backward calls (one a call, whatever its three
+launches), and nothing else; `REFERENCE_ON_CUDA` counts calls of a plain
+version on a CUDA tensor, which no path of the port makes (the UNet's other
+attention goes to the library's SDPA). All three are program counters
+(`voxe_tpu_torch/utils/tracing.py::count`).
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ from typing import Optional
 import torch
 
 from voxe_tpu_torch.ops.cuda_build import CudaLibrary
+from voxe_tpu_torch.utils import tracing
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 
@@ -56,24 +56,11 @@ _LIB_BWD = CudaLibrary(
 # which refuses any other): Di, the LSE and the dQ workspace are padded to it.
 BWD_Q_TILE = {64: 128, 128: 64}
 BWD_DQ_CHUNK = 64  # a tile's dQ workspace holds 64 x 64 chunks, each in the kernel's register order
-LAUNCHES = 0  # forward kernel launches that ran since import (or the last reset)
-CAPTURED = 0  # forward launches recorded into a CUDA graph since import (or the last reset)
-# backward calls since import (or the last reset); each is three kernel
-# launches (preprocess, main pass, postprocess) and counts once
+LAUNCHES = 0  # forward kernel launches that ran since import
+# backward calls since import; each is three kernel launches (preprocess,
+# main pass, postprocess) and counts once
 LAUNCHES_BWD = 0
-REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import (or the last reset)
-
-
-def reset_launches() -> None:
-    global LAUNCHES, CAPTURED, LAUNCHES_BWD, REFERENCE_ON_CUDA
-    LAUNCHES = CAPTURED = LAUNCHES_BWD = REFERENCE_ON_CUDA = 0
-
-
-def count_replayed(n: int) -> None:
-    """Count the `n` forward launches that a CUDA graph's replay ran (the
-    launches its capture recorded in `CAPTURED`)."""
-    global LAUNCHES
-    LAUNCHES += n
+REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import
 
 
 def build(verbose: bool = False):
@@ -114,9 +101,8 @@ def encode_us_bwd(q, k, v, do, iters: int = 1000) -> float:
 
 
 def _count_reference(x) -> None:
-    global REFERENCE_ON_CUDA
     if x.device.type == "cuda":
-        REFERENCE_ON_CUDA += 1
+        tracing.count("flash_attention.REFERENCE_ON_CUDA", device=x.device)
 
 
 def flash_attention_reference(q, k, v, scale: Optional[float] = None) -> torch.Tensor:
@@ -196,11 +182,7 @@ def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: CUDA error {err}")
-    global LAUNCHES, CAPTURED
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
+    tracing.count("flash_attention.LAUNCHES", device=q.device)
     return out, lse
 
 
@@ -297,8 +279,7 @@ def backward_kernels(q, k, v, o, lse, do, scale: float):
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {err}")
-    global LAUNCHES_BWD
-    LAUNCHES_BWD += 1
+    tracing.count("flash_attention.LAUNCHES_BWD", device=q.device)
     return dq, dk, dv, di, lse2, dq_accum
 
 

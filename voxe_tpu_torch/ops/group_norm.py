@@ -28,10 +28,10 @@ arithmetic, so the CPU parity tests hold bit for bit).
 A CUDA tensor goes to the kernel or the call raises: 4-D, channels_last or
 contiguous NCHW, bf16 or f32, gamma and beta bf16 or f32, C / groups <= 256.
 Any other device takes the plain version. `LAUNCHES` counts kernel calls that
-ran, forward and backward alike, each `KERNELS_PER_CALL` launches; a call
-recorded into a CUDA graph counts in `CAPTURED` instead, and in `LAUNCHES` at
-each replay (`count_replayed`); `REFERENCE_ON_CUDA` counts calls of the plain
-version on a CUDA tensor, which no path of the port makes.
+ran, forward and backward alike, a CUDA graph's replays included, each
+`KERNELS_PER_CALL` launches; `REFERENCE_ON_CUDA` counts calls of the plain
+version on a CUDA tensor, which no path of the port makes. Both are program
+counters (`voxe_tpu_torch/utils/tracing.py::count`).
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from voxe_tpu_torch.ops.cuda_build import CudaLibrary
+from voxe_tpu_torch.utils import tracing
 
 _ARGS = [ctypes.c_int] * 12
 _LIB = CudaLibrary(
@@ -58,22 +59,9 @@ MAX_CHANNELS_PER_GROUP = 256  # a fold block holds one group (kFoldThreads)
 KERNELS_PER_CALL = 3
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = 0  # kernel calls that ran since import (or the last reset); each KERNELS_PER_CALL launches
-CAPTURED = 0  # kernel calls recorded into a CUDA graph since import (or the last reset)
-REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import (or the last reset)
+LAUNCHES = 0  # kernel calls that ran since import; each KERNELS_PER_CALL launches
+REFERENCE_ON_CUDA = 0  # plain-version calls on a CUDA tensor since import
 _SMS = {}  # device index -> SM count
-
-
-def reset_launches() -> None:
-    global LAUNCHES, CAPTURED, REFERENCE_ON_CUDA
-    LAUNCHES = CAPTURED = REFERENCE_ON_CUDA = 0
-
-
-def count_replayed(n: int) -> None:
-    """Count the `n` kernel calls that a CUDA graph's replay ran (the calls
-    its capture recorded in `CAPTURED`)."""
-    global LAUNCHES
-    LAUNCHES += n
 
 
 def build(verbose: bool = False):
@@ -85,9 +73,8 @@ def build(verbose: bool = False):
 def group_norm_reference(x, weight, bias, num_groups: int, eps: float, silu: bool = False) -> torch.Tensor:
     """Plain version over [B, C, ...] in any memory format: f32 statistics,
     output in x's dtype, then `F.silu` when `silu`."""
-    global REFERENCE_ON_CUDA
     if x.device.type == "cuda":
-        REFERENCE_ON_CUDA += 1
+        tracing.count("group_norm.REFERENCE_ON_CUDA", device=x.device)
     B, C = x.shape[:2]
     G = num_groups
     reps = C // G
@@ -172,14 +159,6 @@ def _vec(nhwc: bool, x: torch.Tensor, *tensors: torch.Tensor) -> int:
     return vec if inner % vec == 0 and aligned else 1
 
 
-def _count() -> None:
-    global LAUNCHES, CAPTURED
-    if torch.cuda.is_current_stream_capturing():
-        CAPTURED += 1
-    else:
-        LAUNCHES += 1
-
-
 def forward_kernel(x, weight, bias, num_groups: int, eps: float, silu: bool = False):
     """One forward call on the card: (y, aux), aux the f32 [2 B C + 3 B G]
     statistics the backward reads (a [B, C], b [B, C], then per (b, group)
@@ -200,7 +179,7 @@ def forward_kernel(x, weight, bias, num_groups: int, eps: float, silu: bool = Fa
     )
     if err != 0:
         raise RuntimeError(f"group_norm forward launch failed: CUDA error {err}")
-    _count()
+    tracing.count("group_norm.LAUNCHES", device=x.device)
     return y, aux
 
 
@@ -229,7 +208,7 @@ def backward_kernel(x, dy, weight, aux, num_groups: int, silu: bool = False):
     )
     if err != 0:
         raise RuntimeError(f"group_norm backward launch failed: CUDA error {err}")
-    _count()
+    tracing.count("group_norm.LAUNCHES", device=x.device)
     return dx, dparams[0], dparams[1]
 
 

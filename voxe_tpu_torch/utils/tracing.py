@@ -1,4 +1,4 @@
-"""Program spans and the host-sync counter.
+"""Program spans and the program counters.
 
 `span(name)` marks one layer's work: the shear-warp render, SD's VAE encode,
 UNet and token maps, a trainer step and its draw, loss, backward and
@@ -16,25 +16,30 @@ site)` (host values copied to the card: a blocking copy from pageable
 memory, which waits for the stream to drain) or, for a library call that
 reads a device value inside, `synced(site, fn)`. Each counts one in `SYNCS`,
 adds the host time it took to `SYNC_NS` and runs inside
-`span("sync." + site)`. The counters follow the launch counters' convention
-(`ops/flash_attention.py::LAUNCHES`): always counted, never reset by the
-program, read as deltas. So do `UNET_CALLS`, the calls of SD's no-grad
-UNet pass (`StableDiffusion.unet_noise_pred`), and `UNET_REPLAYS`, those of
-them that replayed a CUDA graph of the pass instead of dispatching it.
-
+`span("sync." + site)`. `UNET_CALLS` counts the calls of SD's no-grad UNet
+pass (`StableDiffusion.unet_noise_pred`), and `UNET_REPLAYS` those of them
+that replayed a CUDA graph of the pass instead of dispatching it.
 `ATTN_FLASH_FLOPS`, `ATTN_SDPA_FLOPS` and `ATTN_PROBS_FLOPS` count the UNet
 self-attentions' FLOPs (q k^T and p v, 4 B Q K C, from the shapes) by the
 route each call took: the flash kernel, the library's SDPA or the f32 probs
-path (`count_attention`). A call recorded into a CUDA graph counts in
-`ATTN_CAPTURED` instead; the graph's owner adds what its capture recorded
-at each replay (`count_replayed_attention`), as the flash kernel's
-`LAUNCHES` / `CAPTURED` do.
+path.
+
+These and the kernel modules' counters are the program counters
+(`COUNTERS`): module-level ints (`composite.LAUNCHED_SHAPES` a set) that
+only `count` raises, that the program never resets and that readers take as
+deltas (`counted`). A call counted on a card while its current stream is
+being captured into a CUDA graph adds to the capture's tally (`captured`)
+instead, and the graph's owner adds the tally at each replay (`replayed`),
+so a replay counts what the same calls would count eagerly.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import importlib
+import sys
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -45,8 +50,16 @@ UNET_REPLAYS = 0  # of those, the calls that replayed a CUDA graph
 ATTN_FLASH_FLOPS = 0  # UNet self-attention FLOPs that ran through the flash kernel
 ATTN_SDPA_FLOPS = 0  # ... through the library's scaled_dot_product_attention
 ATTN_PROBS_FLOPS = 0  # ... through the f32 probs path (capture or the probs-edit hook)
-ATTN_CAPTURED = {"flash": 0, "sdpa": 0, "probs": 0}  # the same, recorded into CUDA graphs
-_ATTN_NAMES = {"flash": "ATTN_FLASH_FLOPS", "sdpa": "ATTN_SDPA_FLOPS", "probs": "ATTN_PROBS_FLOPS"}
+
+_MODULES = {"flash_attention": "voxe_tpu_torch.ops.flash_attention", "group_norm": "voxe_tpu_torch.ops.group_norm",
+            "composite": "voxe_tpu_torch.ops.composite", "tracing": __name__}
+COUNTERS = (  # "module.NAME" of every program counter
+    "flash_attention.LAUNCHES", "flash_attention.LAUNCHES_BWD", "flash_attention.REFERENCE_ON_CUDA",
+    "group_norm.LAUNCHES", "group_norm.REFERENCE_ON_CUDA", "composite.LAUNCHES", "composite.LAUNCHED_SHAPES",
+    "tracing.SYNCS", "tracing.SYNC_NS", "tracing.UNET_CALLS", "tracing.UNET_REPLAYS",
+    "tracing.ATTN_FLASH_FLOPS", "tracing.ATTN_SDPA_FLOPS", "tracing.ATTN_PROBS_FLOPS",
+)
+_tally: Optional[dict] = None  # the open capture's counts (`captured`)
 
 _recording = False
 _records: List[list] = []  # [name, parent index or -1, t0 ns, t1 ns]
@@ -133,12 +146,11 @@ def take() -> List[Tuple[str, int, int, int]]:
 
 def synced(site: str, fn):
     """`fn()`, a call that makes the host wait for the card once."""
-    global SYNCS, SYNC_NS
-    SYNCS += 1
+    count("tracing.SYNCS")
     t0 = time.perf_counter_ns()
     with span("sync." + site):
         out = fn()
-    SYNC_NS += time.perf_counter_ns() - t0
+    count("tracing.SYNC_NS", time.perf_counter_ns() - t0)
     return out
 
 
@@ -157,18 +169,67 @@ def upload(values, site: str, *, dtype=None, device=None) -> torch.Tensor:
     return synced(site, lambda: torch.as_tensor(values, dtype=dtype, device=device))
 
 
-def count_attention(route: str, flops: int, device: torch.device) -> None:
-    """One self-attention call's FLOPs on `route` ("flash", "sdpa" or
-    "probs"): into `ATTN_CAPTURED` while the card's current stream is being
-    captured, else into the route's counter."""
-    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        ATTN_CAPTURED[route] += flops
-    else:
-        globals()[_ATTN_NAMES[route]] += flops
+def _home(name: str):
+    """(module, attribute) of the counter `name`, importing the module if no
+    one has yet."""
+    module, attr = name.split(".")
+    path = _MODULES[module]
+    return sys.modules.get(path) or importlib.import_module(path), attr
 
 
-def count_replayed_attention(counts: dict) -> None:
-    """A replay of a graph whose capture recorded `counts` ({route: FLOPs},
-    the change of `ATTN_CAPTURED` over the capture)."""
-    for route, flops in counts.items():
-        globals()[_ATTN_NAMES[route]] += flops
+def _plus(old, value):
+    return old | value if isinstance(old, set) else old + value
+
+
+def count(name: str, value=1, device: Optional[torch.device] = None) -> None:
+    """Add `value` to the program counter `name` (a set of new members for a
+    set counter). A call on a card (`device`) whose current stream is being
+    captured adds to the open capture's tally instead; a call without a card
+    never asks CUDA. A counter is replaced, never changed in place."""
+    if device is not None and device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        if _tally is None:
+            raise RuntimeError(f"{name}: counted inside a CUDA graph capture without tracing.captured()")
+        _tally[name] = _plus(_tally[name], value) if name in _tally else value
+        return
+    module, attr = _home(name)
+    setattr(module, attr, _plus(getattr(module, attr), value))
+
+
+@contextlib.contextmanager
+def captured():
+    """The tally of one CUDA graph capture, {counter: value}:
+    `with tracing.captured() as tally, torch.cuda.graph(graph): ...`."""
+    global _tally
+    _tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _tally = None
+
+
+def replayed(tally: dict) -> None:
+    """Count one replay of a graph whose capture filled `tally`."""
+    for name, value in tally.items():
+        count(name, value)
+
+
+def _value(name: str):
+    module, attr = _home(name)
+    return getattr(module, attr)
+
+
+class counted:
+    """The change of every program counter over a block:
+    `with tracing.counted() as c: ...`, then `c["group_norm.LAUNCHES"]` (a
+    set counter's new members). Read inside the block, the change so far."""
+
+    def __enter__(self):
+        self._start, self._end = {name: _value(name) for name in COUNTERS}, None
+        return self
+
+    def __exit__(self, *exc):
+        self._end = {name: _value(name) for name in COUNTERS}
+        return False
+
+    def __getitem__(self, name: str):
+        return (_value(name) if self._end is None else self._end[name]) - self._start[name]
