@@ -23,7 +23,11 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
      beside its byte bound, the plain version's and F.group_norm + F.silu's
      (the library yardstick); every later phase runs its GroupNorms through
      the kernel (the plain version on the card fails the phase) and logs
-     their launches, and the kernels row gives the main path's;
+     their launches, and the kernels row gives the main path's; the
+     shear-warp tail's sums and backward kernels (composite-tail-kernels)
+     against the plain tail at recon-160's and refine-sd14's shapes, their
+     ms beside their byte bounds and the plain sums' and backward's, and
+     their launches by path and by phase in the kernels row;
   4. small-input checks: the tiny edit step's and a 16^3 shear-warp recon
      step's grid gradients on the card against the same step on the CPU;
   5. the edit main path at full width: the SDS edit step (SD 2.0 at its
@@ -33,7 +37,8 @@ Phases, one line each (any failure exits non-zero; there is no CPU path):
   6. the recon main path at full width: a 400^2 synthetic scene rendered by
      the exact renderer (the compositing kernel's route 2), targets warped to
      the 768^2 base lattice, shear-warp recon steps at 160^3 with the fused
-     compositing kernel and Adam (2 launches per step), then the held-out
+     compositing kernels and Adam (the weights, sums and backward kernels
+     once a step each: colour and diffuse composite in one pass), then the held-out
      images through the tester (5 launches per 400^2 image);
   6a. recon-kstep: that configuration at K = 10 steps a call against K = 1,
      two rounds of 20 steps, each call ending in a loss read;
@@ -173,6 +178,7 @@ import torch
 import torch.nn.functional as F
 from PIL import Image
 
+from portbench.metrics.composite_bwd_roofline import composite_bwd_bytes
 from portbench.metrics.lib.opcount import (PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S, composite_bound_s, composite_bytes,
                                            flash_fwd_bound_s)
 from voxe_tpu_torch.grid import feature_voxels as fvg
@@ -200,7 +206,6 @@ from voxe_tpu_torch.ops import composite as comp
 from voxe_tpu_torch.ops import cuda_build
 from voxe_tpu_torch.ops import flash_attention as fa
 from voxe_tpu_torch.ops import group_norm as gn
-from voxe_tpu_torch.render.accumulate import _pad_samples
 from voxe_tpu_torch.render.interface import SHVoxGridRenderConfig, render_feature_voxel_grid
 from voxe_tpu_torch.render.rays import Rays, cast_rays, flatten_rays
 from voxe_tpu_torch.render.shearwarp import lane_aligned_res, render_shear_warp
@@ -500,7 +505,7 @@ def hold_composite(args, name: str) -> float:
 def phase_composite_kernel(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(1)
     # the main shapes the driven paths launch at: 160 slices slab-padded to
-    # 256 as accumulate pads them, on the recon step's 768^2 base, the edit
+    # 256 as composite_render pads them, on the recon step's 768^2 base, the edit
     # step's and the refinement's 384^2 base, the CLIs' 800^2 feedback base
     # (2x the 400^2 screen) and the shear-warp turntable's 1600^2 base (2x
     # its 800^2 screen); the held-out render chunk; the exact chunk at 512
@@ -510,7 +515,7 @@ def phase_composite_kernel(dev) -> dict:
     # launched.
     def slab_padded(n):
         dens, depths, dirn = composite_inputs(g, n, GRID_RES, 5.0, dev)
-        return _pad_samples(dens, depths, "slab")[:2] + (dirn,)
+        return comp.pad_samples(dens, depths) + (dirn,)
 
     cases = {
         "recon_step_slab_padded": slab_padded(RECON_BASE * RECON_BASE),
@@ -541,6 +546,89 @@ def phase_composite_kernel(dev) -> dict:
         replaces="voxe_tpu/ops/composite.py:91", launches=0, max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", library_ms=None,
     )
+
+
+# The shear-warp tail's sums and backward kernels (csrc/composite_sums.cu,
+# csrc/composite_bwd.cu) at the shapes the cells launch: recon-160's render
+# (768^2 rays, 160 slices, 3 channels, dsigma) and refine-sd14's attention
+# render (384^2, 2 channels, no dsigma). Held against the plain tail
+# (`composite_render_reference`) as tests/test_torch_composite.py holds
+# them: colour and depth within 1e-5 (relative above 1), acc equal (one
+# weights kernel), dsigma within 1e-5 of the largest, dradiance within one
+# bf16 ulp; the colour's gradient on a 1/16 grid so both sides round one
+# value to bf16. Device ms by CUDA events; the bound is each kernel's bytes
+# (every tensor its interface reads or writes, once) at 3.35 TB/s; the plain
+# versions' ms are `composite_sums_reference` on the same weights and the
+# plain tail's backward (its forward and backward less its forward).
+TAIL_CASES = {"recon_step": (RECON_BASE**2, GRID_RES, 3, True), "refine_attention": (BASE**2, GRID_RES, 2, False)}
+
+
+def tail_inputs(g, n, s, c, dev):
+    inside = torch.rand((n, s), generator=g, device=dev) > 0.2
+    sigma = torch.where(inside, torch.rand((n, s), generator=g, device=dev) * 5.0, 0.0)
+    depths = torch.sort(torch.rand((n, s), generator=g, device=dev) * 4.0 + 2.0, dim=-1).values
+    dir_norms = torch.rand((n,), generator=g, device=dev) * 0.5 + 0.9
+    radiance = torch.randn((n, s, c), generator=g, device=dev).clamp(-4.0, 4.0).to(torch.bfloat16)
+    g_colour = torch.round((torch.rand((n, c), generator=g, device=dev) * 2.0 - 1.0) * 16.0) / 16.0
+    upstream = (g_colour, torch.randn((n, 1), generator=g, device=dev), torch.randn((n, 1), generator=g, device=dev))
+    return (sigma, depths, dir_norms, radiance, inside), upstream
+
+
+def tail_pass(fn, inputs, upstream, want_sigma, backward=True):
+    sigma, depths, dir_norms, radiance, inside = inputs
+    sigma = sigma.clone().requires_grad_(want_sigma)
+    radiance = radiance.clone().requires_grad_(True)
+    outs = fn(sigma, depths, dir_norms, radiance, inside)
+    if backward:
+        sum((o * g_).sum() for o, g_ in zip(outs, upstream)).backward()
+    return [o.detach() for o in outs] + [sigma.grad, radiance.grad]
+
+
+def phase_composite_tail_kernels(dev) -> list:
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = {"sums": {}, "bwd": {}}
+    for case, (n, s, c, want_sigma) in TAIL_CASES.items():
+        inputs, upstream = tail_inputs(g, n, s, c, dev)
+        got = tail_pass(comp.composite_render, inputs, upstream, want_sigma)
+        torch.cuda.synchronize()
+        ref = tail_pass(comp.composite_render_reference, inputs, upstream, want_sigma)
+        errs = {name: float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for name, a, b in zip(
+            ("colour", "depth"), got[:2], ref[:2])}
+        errs["acc"] = float((got[2] - ref[2]).abs().max())
+        errs["dsigma"] = float((got[3] - ref[3]).abs().max() / ref[3].abs().max()) if want_sigma else 0.0
+        want = ref[4].float()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=torch.finfo(torch.bfloat16).tiny))) - 7)
+        errs["dradiance_ulps"] = float(((got[4].float() - want).abs() / ulp).max())
+        log("kernel-check", kernel="composite_sums+composite_bwd", case=case, shape=[n, s, c], with_dsigma=want_sigma,
+            **errs)
+        if not (max(errs["colour"], errs["depth"], errs["dsigma"]) <= 1e-5 and errs["acc"] == 0.0
+                and errs["dradiance_ulps"] <= 1.0):
+            raise AssertionError(f"the compositing tail's kernels disagree with the plain tail on {case}: {errs}")
+        del got, ref
+        sigma, depths, dir_norms, radiance, inside = inputs
+        weights = comp.composite_weights_kernel(*comp.pad_samples(sigma, depths), dir_norms)[0]
+        grads = (upstream[0], upstream[1].reshape(-1), upstream[2].reshape(-1))
+        sums_ms = time_ms(lambda: comp.composite_sums_kernel(weights, depths, radiance, inside))
+        bwd_ms = time_ms(lambda: comp.composite_bwd_kernel(*inputs, *grads, want_sigma, True))
+        plain_sums = time_ms(lambda: comp.composite_sums_reference(weights, depths, radiance, inside), iters=5,
+                             warmup=1)
+        plain_fwd = time_ms(lambda: tail_pass(comp.composite_render_reference, inputs, upstream, want_sigma, False),
+                            iters=5, warmup=1)
+        plain_all = time_ms(lambda: tail_pass(comp.composite_render_reference, inputs, upstream, want_sigma),
+                            iters=5, warmup=1)
+        sums_bound = (n * s * (4 + 4 + 2 * c + 1) + n * (4 * c + 4)) / PEAK_HBM_BYTES_PER_S * 1e3
+        bwd_bound = composite_bwd_bytes(n, s, c, 2, want_sigma, True) / PEAK_HBM_BYTES_PER_S * 1e3
+        for kernel, ms, bound, plain in (("sums", sums_ms, sums_bound, plain_sums),
+                                         ("bwd", bwd_ms, bwd_bound, plain_all - plain_fwd)):
+            rows[kernel][case] = dict(ms=ms, bound_ms=bound, plain_ms=plain, share_of_bound=bound / ms)
+            log("kernel-time", kernel=f"composite_{kernel}", case=case, shape=[n, s, c], with_dsigma=want_sigma, ms=ms,
+                bound_ms=bound, share_of_bound=bound / ms, plain_ms=plain)
+        del inputs, upstream, weights, sigma, depths, dir_norms, radiance, inside
+        torch.cuda.empty_cache()
+    return [dict(name=f"composite_{kernel}", route="cuda", source=f"voxe_tpu_torch/csrc/composite_{kernel}.cu",
+                 replaces="the plain tail around kernel 2 (render/shearwarp.py::_monolithic_composite)",
+                 launches=0, by_case=by_case, bound_by="bytes", library_ms=None)
+            for kernel, by_case in rows.items()]
 
 
 # GroupNorm with its SiLU (csrc/group_norm.cu), 32 groups, checked at one
@@ -575,12 +663,15 @@ def device_ms(fn, calls: int = 5) -> tuple:
     warm-up call, GroupNorm kernels keyed by name and template arguments."""
     fn()
     torch.cuda.synchronize()
-    split = {}
-    for name, ms in kernel_ms(fn, calls).items():
-        m = re.search(r"(group_norm_\w+)<([^>]*)>", name)
-        key = re.sub(r"\W+", "_", f"{m.group(1)}_{m.group(2)}" if m else name[:60])
-        split[key] = split.get(key, 0.0) + ms
-    return sum(split.values()), split
+    for _ in range(3):  # another profile when one records no device time, as one has in a run
+        split = {}
+        for name, ms in kernel_ms(fn, calls).items():
+            m = re.search(r"(group_norm_\w+)<([^>]*)>", name)
+            key = re.sub(r"\W+", "_", f"{m.group(1)}_{m.group(2)}" if m else name[:60])
+            split[key] = split.get(key, 0.0) + ms
+        if split:
+            return sum(split.values()), split
+    raise AssertionError("three profiles recorded no device time")
 
 
 def gn_worst(got, want, dtype) -> float:
@@ -795,7 +886,7 @@ def phase_small_check_recon(dev) -> None:
     rel = float((got - ref).abs().max() / ref.abs().max())
     log("small-check", what="16^3 shear-warp recon step grid gradient, card vs CPU (f32, fused kernel)",
         rel_err=rel, tol=1e-4, card_composite_launches=launches)
-    if not (torch.isfinite(got).all() and rel < 1e-4 and launches == 2):
+    if not (torch.isfinite(got).all() and rel < 1e-4 and launches == 1):  # colour and diffuse in one pass
         raise AssertionError(f"small-input recon step disagrees with the CPU: {rel}, launches {launches}")
 
 
@@ -841,15 +932,17 @@ def phase_recon_main(dev, workdir: Path) -> tuple:
             step_ms.append((time.perf_counter() - t1) * 1e3)
     steps = 1 + RECON_TIMED_STEPS
     train_launches, flash_launches = c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
+    tail_launches = c["composite.LAUNCHES_SUMS"], c["composite.LAUNCHES_BWD"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     moved = float((grid.densities.detach() - before).abs().max())
     ms_step = float(np.median(step_ms))
     log("recon-main-path", steps=steps, ms_per_step_median=ms_step, ms_per_step_min=min(step_ms),
         ms_per_step_max=max(step_ms), timed_steps=RECON_TIMED_STEPS, rays_per_s=RECON_BASE**2 / ms_step * 1e3,
-        peak_mem_gib=peak_gib, composite_launches=train_launches, flash_launches=flash_launches,
-        losses=losses, grid_max_change=moved)
-    if train_launches != 2 * steps or flash_launches != 0:
-        raise AssertionError(f"composite kernel launched {train_launches} times in {steps} steps, want 2 per step")
+        peak_mem_gib=peak_gib, composite_launches=train_launches, sums_and_bwd_launches=list(tail_launches),
+        flash_launches=flash_launches, losses=losses, grid_max_change=moved)
+    if (train_launches, *tail_launches) != (steps,) * 3 or flash_launches != 0:
+        raise AssertionError(f"compositing kernels launched {train_launches}, {tail_launches} times in {steps} steps, "
+                             f"want 1 each per step")
     if not all(np.isfinite(losses)) or not moved > 0.0:
         raise AssertionError(f"recon path: losses {losses}, grid change {moved}")
 
@@ -904,8 +997,8 @@ def phase_recon_kstep(ctx: dict) -> None:
         steps_per_s_k10=1e3 / med[RECON_K], steps_per_s_k1=1e3 / med[1],
         ratio_k10_over_k1=med[RECON_K] / med[1], composite_launches=launches, flash_launches=flash,
         losses_finite=bool(np.isfinite(losses).all()))
-    if launches != 2 * steps or flash != 0 or not np.isfinite(losses).all():
-        raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 2 a step")
+    if launches != steps or flash != 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"recon-kstep: {launches} compositing launches for {steps} steps, want 1 a step")
 
 
 class LogRecords(logging.Handler):
@@ -988,7 +1081,7 @@ def phase_recon_cli(workdir: Path) -> None:
     tests = [(r.global_step, r.test_metrics) for r in records if hasattr(r, "test_metrics")]
     stages = [r for r in records if hasattr(r, "stage_training_s")]
     test_images = len(list((workdir / "scene" / "test").glob("*.png")))
-    want = 2 * steps + len(pngs) + -(-SCENE**2 // 32768) * test_images * RECON_CLI_STAGES
+    want = steps + len(pngs) + -(-SCENE**2 // 32768) * test_images * RECON_CLI_STAGES
     log("recon-cli", stages=RECON_CLI_STAGES, iterations_per_stage=RECON_CLI_ITERS, seconds=seconds,
         camera_rays_png=(out / "camera_rays.png").exists(), feedback_pngs=sum(p.exists() for p in pngs),
         feedback_pngs_jax_cadence=len(pngs), feedback_steps=feedback_steps,
@@ -1039,12 +1132,12 @@ def phase_recon_cli_resume(workdir: Path) -> None:
     resumed_s, launches, flash = time.perf_counter() - t0, c["composite.LAUNCHES"], c["flash_attention.LAUNCHES"]
     stages2 = [r for r in records2 if hasattr(r, "stage_training_s")]
     arrays2, meta2 = read_training_state(resumed / "saved_models" / "training_state_latest.pth")
-    # first run: 2 steps an iteration; feedback on each stage's first and last
+    # first run: 1 launch a step; feedback on each stage's first and last
     # call (2 renders each); the held-out test at each stage's end
     steps = RECON_CLI_STAGES * RESUME_ITERS
-    want_first = 2 * steps + 4 * RECON_CLI_STAGES + heldout_launches(workdir, RECON_CLI_STAGES)
+    want_first = steps + 4 * RECON_CLI_STAGES + heldout_launches(workdir, RECON_CLI_STAGES)
     resumed_steps = RESUME_MORE - meta["stage_iteration"]
-    want_resumed = 2 * resumed_steps + 2 + heldout_launches(workdir, 1)
+    want_resumed = resumed_steps + 2 + heldout_launches(workdir, 1)
     snapshots = sorted(p.name for p in (resumed / "saved_models").glob("model_stage_*"))
     log("recon-cli-resume", steps_per_call=10, first_run_s=first_s, first_run_steps=steps,
         first_stage_training_s=[r.stage_training_s for r in stages],
@@ -1946,7 +2039,7 @@ def phase_parallel_nccl(dev, workdir: Path) -> None:
                 nccl_kernels_ms_and_launches_per_step=json.dumps(nccl).replace(" ", ""), collectives=recon_calls,
                 composite_launches=recon_launches, max_grid_diff=gap, max_grid=scale, bitwise=same,
                 tol_rel=PAR_RECON_TOL, card=card_line().replace(" ", "_"))
-            want = 2 * PAR_RECON_K * PAR_ROUNDS * 2
+            want = PAR_RECON_K * PAR_ROUNDS * 2  # one a step, sharded and unsharded
             if not (gap <= PAR_RECON_TOL * scale and recon_launches == want):
                 raise AssertionError(f"parallel-nccl recon: grid gap {gap} of {scale}, {recon_launches} launches")
             if recon_calls.get("all_reduce_grads") != PAR_RECON_K * PAR_ROUNDS:
@@ -2396,7 +2489,7 @@ def build_all() -> None:
             fut.result()  # raises if nvcc failed
     log("build", kernels=list(libs), seconds=time.perf_counter() - t0)
     for name, lib in (("flash_attn_fwd", fa._LIB), ("flash_attn_bwd", fa._LIB_BWD), ("composite_fwd", comp._LIB),
-                      ("group_norm", gn._LIB)):
+                      ("composite_sums", comp._SUMS_LIB), ("composite_bwd", comp._BWD_LIB), ("group_norm", gn._LIB)):
         if lib.report is None:
             log("ptxas", lib=name, note="not built in this process (a library of the same source was there)")
             continue
@@ -2456,6 +2549,7 @@ def main() -> int:
     flash_row = timed("flash-kernel", phase_flash_kernel, dev)
     bwd_row = timed("flash-bwd-kernel", phase_flash_bwd_kernel, dev)
     comp_row = timed("composite-kernel", phase_composite_kernel, dev)
+    sums_row, tail_bwd_row = timed("composite-tail-kernels", phase_composite_tail_kernels, dev)
     gn_row = timed("group-norm-kernel", phase_group_norm_kernel, dev)
     timed("small-check", phase_small_check, dev)
     timed("small-check-recon", phase_small_check_recon, dev)
@@ -2501,12 +2595,16 @@ def main() -> int:
     # timed() held flash_attn_bwd at 0 on every path but unet-grad's
     for row, counter, main_path in ((flash_row, "flash_attention.LAUNCHES", "edit-step"),
                                     (bwd_row, "flash_attention.LAUNCHES_BWD", "unet-grad"),
-                                    (comp_row, "composite.LAUNCHES", "recon")):
+                                    (comp_row, "composite.LAUNCHES", "recon"),
+                                    (sums_row, "composite.LAUNCHES_SUMS", "recon"),
+                                    (tail_bwd_row, "composite.LAUNCHES_BWD", "recon")):
         row["launches_by_path"] = {name: sum(c[counter] for c in runs) for name, runs in PATHS.items()}
         row["launches"] = row["launches_by_path"][main_path]
+    for row, counter in ((sums_row, "composite.LAUNCHES_SUMS"), (tail_bwd_row, "composite.LAUNCHES_BWD")):
+        row["launches_by_phase"] = {name: c[counter] for name, c in PHASES.items()}
     gn_row["launches"] = PHASES["main-path"]["group_norm.LAUNCHES"] * gn.KERNELS_PER_CALL
     gn_row["launches_by_phase"] = {name: c["group_norm.LAUNCHES"] * gn.KERNELS_PER_CALL for name, c in PHASES.items()}
-    print(json.dumps({"kernels": [flash_row, bwd_row, comp_row, gn_row]}), flush=True)
+    print(json.dumps({"kernels": [flash_row, bwd_row, comp_row, sums_row, tail_bwd_row, gn_row]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

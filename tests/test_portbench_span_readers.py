@@ -141,7 +141,8 @@ def test_the_span_tool_on_a_small_cell_on_the_cpu():
         r = tool.measure("recon-160", 2**31 + 99, 1, 2, device="cpu", overrides=OVERRIDES["recon-160"])
     finally:
         torch.set_num_threads(threads)
-    assert r["host_syncs_per_step"] == r["sync_debug"]["counted_per_step"] == 9
+    # the CPU's plain compositing backward counts one read a step (one pass a render)
+    assert r["host_syncs_per_step"] == r["sync_debug"]["counted_per_step"] == 8
     assert r["laid_share"] is None and r["card"] == "cpu"  # no device operation on the CPU
     assert {"voxe.step", "voxe.render", "voxe.loss", "voxe.backward", "voxe.optim"} <= set(r["spans"])
     assert r["spans"]["voxe.render"]["calls"] == 1 and r["spans"]["voxe.render"]["host_ms"] > 0

@@ -132,6 +132,10 @@ PROGRAM_COUNTERS = [
     ("voxe_tpu_torch.ops.group_norm", "REFERENCE_ON_CUDA", INT_VALUES),
     ("voxe_tpu_torch.ops.composite", "LAUNCHES", INT_VALUES),
     ("voxe_tpu_torch.ops.composite", "LAUNCHED_SHAPES", ({(1, 2)}, {(3, 4)}, {(3, 4), (5, 6)})),
+    ("voxe_tpu_torch.ops.composite", "LAUNCHES_SUMS", INT_VALUES),
+    ("voxe_tpu_torch.ops.composite", "LAUNCHES_BWD", INT_VALUES),
+    ("voxe_tpu_torch.ops.composite", "LAUNCHED_BWD_SHAPES",
+     ({(1, 2, 3, 2, True, True)}, {(4, 5, 2, 2, False, True)}, {(4, 5, 2, 2, False, True), (6, 7, 6, 4, True, True)})),
 ] + [("voxe_tpu_torch.utils.tracing", name, INT_VALUES) for name in (
     "SYNCS", "SYNC_NS", "UNET_CALLS", "UNET_REPLAYS", "ATTN_FLASH_FLOPS", "ATTN_SDPA_FLOPS", "ATTN_PROBS_FLOPS")]
 
@@ -176,7 +180,10 @@ SPANS = {
                     "backward": 1, "optim": 1},
     "recon-160": {"step": 1, "draw": 1, "render": 1, "loss": 1, "backward": 1, "optim": 1},
 }
-SYNCS = {"edit-sd2": 13, "refine-sd14": 24, "recon-160": 9}  # host syncs a step, each through `tracing`
+# host syncs a step on the CPU, each through `tracing`; the recon step's
+# render composites once (colour and diffuse in one pass), so the plain
+# compositing backward counts its one read (the card's kernels make none)
+SYNCS = {"edit-sd2": 13, "refine-sd14": 24, "recon-160": 8}
 
 
 def _run(cell: str, steps: int, recording: bool):

@@ -19,8 +19,6 @@ from voxe_tpu_torch.utils.constants import (
     ZERO_PLUS,
 )
 
-LANE = 128  # the fused branch pads the sample axis to this multiple, as the JAX package does
-
 
 class RenderOut(NamedTuple):
     colour: torch.Tensor  # [N, C]
@@ -41,29 +39,6 @@ def density2occupancy_pb(densities: torch.Tensor, deltas: torch.Tensor) -> torch
     return 1.0 - torch.exp(-(densities * deltas))
 
 
-def _pad_samples(raw_density, depths, final_delta: str):
-    """Pad the sample axis to a multiple of LANE with zero-density samples
-    whose depths continue at the slab spacing ("slab": the kernel's
-    next-depth difference then realises the bounded last interval) or at
-    INFINITY steps ("inf"). "slab" always pads, so the last real sample has
-    a successor."""
-    S = depths.shape[-1]
-    pad = (-S) % LANE
-    if final_delta == "slab" and pad == 0:
-        pad = LANE
-    if not pad:
-        return raw_density, depths
-    last = depths[..., -1:]
-    if final_delta == "slab":
-        spacing = depths[..., -1:] - depths[..., -2:-1]
-    else:
-        spacing = torch.full_like(last, INFINITY)
-    ks = torch.arange(1, pad + 1, dtype=depths.dtype, device=depths.device)
-    depths_p = torch.cat([depths, last + spacing * ks], dim=-1)
-    dens_p = torch.cat([raw_density, raw_density.new_zeros((*raw_density.shape[:-1], pad))], dim=-1)
-    return dens_p, depths_p
-
-
 def accumulate_radiance_density_on_rays(
     processed_points,  # [N, S, C+1], or a (radiance [N, S, C], density [N, S]) tuple
     depths: torch.Tensor,  # [N, S]
@@ -74,19 +49,18 @@ def accumulate_radiance_density_on_rays(
     extra_debug_info: bool = False,
     generator: Optional[torch.Generator] = None,
     final_delta: str = "inf",
-    use_fused_kernel: bool = False,
     density_noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Composite per-sample (radiance, density) into per-ray colour and depth.
 
     `final_delta` "inf" gives the last sample an INFINITY interval (exact
     renderer); "slab" repeats the last spacing (shear-warp: the volume ends at
-    its far face). `use_fused_kernel` computes the weights with
-    `ops.composite.composite_weights` (the CUDA kernel on a card) after the
-    same lane padding as the JAX package, so both give the same numbers. A
-    tuple input keeps the radiance in its own (e.g. bf16) dtype while the
-    weights math stays f32. The density noise is `density_noise` ([N, S]
-    standard normals) when given, else a draw from `generator`."""
+    its far face). The compositing kernel's routes are
+    `ops.composite.fused_shade_composite` (the exact renderer) and
+    `ops.composite.composite_render` (the shear-warp tail). A tuple input
+    keeps the radiance in its own (e.g. bf16) dtype while the weights math
+    stays f32. The density noise is `density_noise` ([N, S] standard
+    normals) when given, else a draw from `generator`."""
     if isinstance(processed_points, tuple):
         raw_radiance, raw_density = processed_points
     else:
@@ -101,36 +75,27 @@ def accumulate_radiance_density_on_rays(
             noise = torch.randn(raw_density.shape, generator=generator, device=generator.device)
         raw_density = raw_density + noise.to(raw_density.device) * stochastic_density_noise_std
 
-    deltas = alpha = None
-    if use_fused_kernel and not extra_debug_info:
-        from voxe_tpu_torch.ops.composite import composite_weights
-
-        S = depths.shape[-1]
-        dens_p, depths_p = _pad_samples(raw_density, depths, final_delta)
-        weights_full, acc = composite_weights(dens_p.contiguous(), depths_p.contiguous(), dir_norms)
-        weights = weights_full[..., :S]
-        acc_render = acc[..., None]
+    deltas = depths[..., 1:] - depths[..., :-1]
+    if final_delta == "slab":
+        last = deltas[..., -1:]
     else:
-        deltas = depths[..., 1:] - depths[..., :-1]
-        if final_delta == "slab":
-            last = deltas[..., -1:]
-        else:
-            last = torch.full_like(deltas[..., :1], INFINITY)
-        deltas = torch.cat([deltas, last], dim=-1) * dir_norms[..., None]
-        if extra_debug_info:
-            alpha = density2occupancy_pb(raw_density, deltas)
-            ones = torch.ones_like(alpha[..., :1])
-            transmittance = torch.cumprod(torch.cat([ones, 1.0 - alpha], dim=-1), dim=-1)[..., :-1]
-            weights = alpha * transmittance
-            acc_render = weights.sum(dim=-1, keepdim=True)
-        else:
-            # same math in fewer passes: prod_{j<i}(1 - alpha_j) =
-            # exp(-sum_{j<i} sigma_j d_j), so w_i = T_i - T_{i+1}
-            optical = torch.cumsum(raw_density * deltas, dim=-1)
-            t_incl = torch.exp(-optical)
-            t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]], dim=-1)
-            weights = t_excl - t_incl
-            acc_render = 1.0 - t_incl[..., -1:]
+        last = torch.full_like(deltas[..., :1], INFINITY)
+    deltas = torch.cat([deltas, last], dim=-1) * dir_norms[..., None]
+    alpha = None
+    if extra_debug_info:
+        alpha = density2occupancy_pb(raw_density, deltas)
+        ones = torch.ones_like(alpha[..., :1])
+        transmittance = torch.cumprod(torch.cat([ones, 1.0 - alpha], dim=-1), dim=-1)[..., :-1]
+        weights = alpha * transmittance
+        acc_render = weights.sum(dim=-1, keepdim=True)
+    else:
+        # same math in fewer passes: prod_{j<i}(1 - alpha_j) =
+        # exp(-sum_{j<i} sigma_j d_j), so w_i = T_i - T_{i+1}
+        optical = torch.cumsum(raw_density * deltas, dim=-1)
+        t_incl = torch.exp(-optical)
+        t_excl = torch.cat([torch.ones_like(t_incl[..., :1]), t_incl[..., :-1]], dim=-1)
+        weights = t_excl - t_incl
+        acc_render = 1.0 - t_incl[..., -1:]
 
     colour = torch.sigmoid(raw_radiance)
     # weights in the radiance dtype, products and sum in f32 (bf16 x bf16 is

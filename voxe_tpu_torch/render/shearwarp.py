@@ -11,9 +11,10 @@ the TPU). Two compositing tails, as in the JAX package:
   and composites blocks of slices under `torch.utils.checkpoint`, so the
   [N, S, C] radiance is never kept for the backward;
 - monolithic (with `config.use_fused_kernel`): every slice is resampled into one
-  [U*V, S, C+1] tensor, shaded, and composited by
-  `accumulate_radiance_density_on_rays(final_delta="slab")` — through the
-  hand-written compositing kernel when the config asks for it.
+  [U*V, S, C+1] tensor, shaded, and composited once by
+  `ops.composite.composite_render` (on a card the hand-written weights,
+  sums and backward kernels; the diffuse shading, where asked for, in the
+  same pass).
 
 The marching branch (axis and direction) is picked on the host from the
 pose, which is the arithmetic the JAX package does with a traced
@@ -67,19 +68,15 @@ from torch.utils.checkpoint import checkpoint
 
 from voxe_tpu_torch.grid.voxels import ACTIVATIONS, VoxelGrid
 from voxe_tpu_torch.parallel.mesh import shard_axis
-from voxe_tpu_torch.render.accumulate import (
-    RenderOut,
-    accumulate_radiance_density_on_rays,
-    safe_disparity,
-)
-from voxe_tpu_torch.render.rays import Rays, cast_rays
+from voxe_tpu_torch.ops.composite import composite_render
+from voxe_tpu_torch.render.accumulate import RenderOut, safe_disparity
+from voxe_tpu_torch.render.rays import cast_rays
 from voxe_tpu_torch.render.sh import evaluate_spherical_harmonics
 from voxe_tpu_torch.utils import tracing
 from voxe_tpu_torch.utils.camera import CameraIntrinsics, CameraPose
 from voxe_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
     EXTRA_DISPARITY,
-    INFINITY,
     NUM_COLOUR_CHANNELS,
 )
 
@@ -294,7 +291,6 @@ def _monolithic_composite(
     Wb: torch.Tensor,  # [S, V, B]
     t_slices: torch.Tensor,  # [N, S] depth of each slice crossing
     dirs: torch.Tensor,  # [N, 3] unit ray dirs (world order)
-    eye_w: torch.Tensor,  # [3]
     inside: torch.Tensor,  # [N, S] bool in-volume mask
     config,
     grid_config,
@@ -305,11 +301,13 @@ def _monolithic_composite(
     noise: Optional[torch.Tensor] = None,
 ) -> RenderOut:
     """Resample every slice onto the base lattice ([U*V, S, C+1]), shade,
-    and composite with accumulate(final_delta="slab"), through the fused
-    kernel when `config.use_fused_kernel`. The density stays f32 through the
-    weights math; the radiance stays in the volume dtype. `noise` ([N, S],
-    scaled) is added to the masked density that both composites read.
-    The resample's dtype as in `_streamed_composite`."""
+    and composite once with `composite_render` (the slab-padded weights and
+    their sums; the kernels on a card). The density stays f32 through the
+    weights math; the radiance stays in the volume dtype. With `with_diffuse`
+    the degree-0 shading is the colour's at degree 0, and above it is
+    stacked on the colour's channels, so one pass makes both. `noise` ([N,
+    S], scaled) is added to the masked density. The resample's dtype as in
+    `_streamed_composite`."""
     S, A, B, C1 = vol.shape
     U, V = Wa.shape[1], Wb.shape[1]
     N = U * V
@@ -328,24 +326,21 @@ def _monolithic_composite(
     sh_degree = int(math.isqrt(sh_coeffs.shape[-1])) - 1
     if diffuse_only:  # shade the colour as the degree-0 diffuse version
         sh_degree, sh_coeffs = 0, sh_coeffs[..., :1]
-    rays_c = Rays(origins=eye_w.expand(N, 3), directions=dirs)
-
-    def tail(degree, coeffs):
-        raw_radiance = evaluate_spherical_harmonics(degree, coeffs, dirs[:, None, :])
-        raw_radiance = torch.where(
-            inside[..., None], raw_radiance, torch.full((), -INFINITY, dtype=raw_radiance.dtype, device=dens.device)
-        )
-        return accumulate_radiance_density_on_rays(
-            (raw_radiance, dens), t_slices, rays_c,
-            white_bkgd=config.white_bkgd, background_value=background_value,
-            final_delta="slab", use_fused_kernel=getattr(config, "use_fused_kernel", False),
-        )
-
-    out = tail(sh_degree, sh_coeffs)
+    radiance = evaluate_spherical_harmonics(sh_degree, sh_coeffs, dirs[:, None, :])
+    # one compositing pass a render: at degree 0 the diffuse shading is the
+    # colour's; above it the diffuse channels ride along with the colour's
+    stacked = with_diffuse and sh_degree > 0
+    if stacked:
+        diffuse = evaluate_spherical_harmonics(0, sh_coeffs[..., :1], dirs[:, None, :])
+        radiance = torch.cat([radiance, diffuse], dim=-1)
+    dir_norms = torch.linalg.norm(dirs, dim=-1)
+    colour, depth, acc = composite_render(dens, t_slices, dir_norms, radiance, inside)
+    if config.white_bkgd:
+        colour = colour + (1.0 - acc) * background_value
+    extra = {EXTRA_DISPARITY: safe_disparity(depth, acc), EXTRA_ACCUMULATED_WEIGHTS: acc}
     if with_diffuse:
-        out_diff = tail(0, sh_coeffs[..., :1])
-        out = RenderOut(out.colour, out.depth, {**out.extra, "diffuse_colour": out_diff.colour})
-    return out
+        extra["diffuse_colour"] = colour[:, num_channels:] if stacked else colour
+    return RenderOut(colour[:, :num_channels] if stacked else colour, depth, extra)
 
 
 def _render_canonical(
@@ -435,10 +430,12 @@ def _render_canonical(
             num_shade_channels=num_shade_channels, noise=noise,
         )
     else:
-        inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S)
+        # row-major [N, S], as the compositing kernels read it (the permute
+        # alone leaves a strided view, and the masked density takes its layout)
+        inside = (in_a[:, :, None] & in_b[:, None, :]).permute(1, 2, 0).reshape(U * V, S).contiguous()
         t_slices = v_norm[:, None] * tau_o[None, :]
         out = _monolithic_composite(
-            vol, Wa, Wb, t_slices, dirs, eye_w, inside, config, grid_config, with_diffuse,
+            vol, Wa, Wb, t_slices, dirs, inside, config, grid_config, with_diffuse,
             background_value=background_value, diffuse_only=diffuse_only,
             num_shade_channels=num_shade_channels, noise=noise,
         )

@@ -56,6 +56,7 @@ _MODULES = {"flash_attention": "voxe_tpu_torch.ops.flash_attention", "group_norm
 COUNTERS = (  # "module.NAME" of every program counter
     "flash_attention.LAUNCHES", "flash_attention.LAUNCHES_BWD", "flash_attention.REFERENCE_ON_CUDA",
     "group_norm.LAUNCHES", "group_norm.REFERENCE_ON_CUDA", "composite.LAUNCHES", "composite.LAUNCHED_SHAPES",
+    "composite.LAUNCHES_SUMS", "composite.LAUNCHES_BWD", "composite.LAUNCHED_BWD_SHAPES",
     "tracing.SYNCS", "tracing.SYNC_NS", "tracing.UNET_CALLS", "tracing.UNET_REPLAYS",
     "tracing.ATTN_FLASH_FLOPS", "tracing.ATTN_SDPA_FLOPS", "tracing.ATTN_PROBS_FLOPS",
 )
